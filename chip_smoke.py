@@ -9,9 +9,10 @@ prints no result):
   2. build   — nvcc builds every kernel under youreditableavatar_tpu_torch/csrc.
   3. kernels — every kernel against its plain PyTorch version on the card:
                pair expansion, tile histogram and counting ranks bit-exact,
-               compositing forward at full width and its gradient at 256²
-               (20k Gaussians), plus each kernel's time, its plain version's
-               time and its bound at the main-path shapes.
+               compositing forward and its gradient at full width, the
+               render's input gradients at 256² (20k Gaussians) against the
+               plain render on the CPU, plus each kernel's time, its plain
+               version's time and its bound at the main-path shapes.
   4. render  — render forward + backward on the 512²/100k sphere-shell scene.
   5. fit     — the init-texture trainer (TetGSInitTrainer) for 50 steps at
                512² on an icosphere with 6 subdivisions (81,920 faces) and
@@ -157,8 +158,8 @@ def phase_kernels(dev, report):
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
         composite_cuda as comp)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.counting import (
-        rank_destinations, rank_destinations_plain, tile_histogram,
-        tile_histogram_plain)
+        aligned_starts_ext, rank_destinations, rank_destinations_plain,
+        tile_histogram, tile_histogram_plain)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.expand_cuda import (
         expand_pairs_kernel, expand_pairs_plain)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.preprocess import (
@@ -208,12 +209,8 @@ def phase_kernels(dev, report):
 
         # K3b: stable ranks → destinations, bit-exact.
         def astart_ext_of(hist, tiles, pairs):
-            aligned = ((hist[:tiles] + comp.CHUNK - 1) // comp.CHUNK) * comp.CHUNK
-            return torch.cat([
-                torch.zeros(1, dtype=torch.int32, device=dev),
-                torch.cumsum(aligned, 0).to(torch.int32)[:-1],
-                torch.full((1,), pairs + tiles * comp.CHUNK, dtype=torch.int32,
-                           device=dev)])
+            return aligned_starts_ext(hist, tiles, comp.CHUNK,
+                                      pairs + tiles * comp.CHUNK)
 
         astart_ext = astart_ext_of(hk, num_t, PAIR_BUDGET)
         dk = rank_destinations(tk, astart_ext)
@@ -270,62 +267,52 @@ def phase_kernels(dev, report):
             bound=bound(fwd_bytes, FWD_OPS_PER_EVAL * evals),
         )
 
-    # K1b timing at full width with random cotangents.
+    # K1b at full width: the kernel's gradient (through the autograd
+    # Function) against autograd of the plain version, same random
+    # cotangents, each of the 9 columns at GRAD_RTOL_OF_MAX · its max|g|.
     gen = torch.Generator(device=dev).manual_seed(1)
     drgb = torch.randn(rk.shape, generator=gen, device=dev)
     dt = torch.randn(fk.shape, generator=gen, device=dev)
     bwd_ms = device_ms(lambda: comp._backward_raw(
         fields, pg, astart, tcount, rk, fk, drgb, dt, ntx), 20)
-    fields_g = fields.detach().requires_grad_()
 
-    def plain_backward():
-        rp_, tp2, _ = comp.composite_tiles_plain(fields_g, pg, astart, tcount,
-                                                 ntx, nty)
+    def composite_grad(fn):
+        """fields_ext gradient of fn and the device ms of its backward."""
+        f = fields.detach().requires_grad_()
+        r, t, _ = fn(f, pg, astart, tcount, ntx, nty)
         torch.cuda.synchronize()
         t0 = torch.cuda.Event(enable_timing=True)
         t1 = torch.cuda.Event(enable_timing=True)
         t0.record()
-        torch.autograd.grad((rp_ * drgb).sum() + (tp2 * dt).sum(), fields_g)
+        g = torch.autograd.grad((r * drgb).sum() + (t * dt).sum(), f)[0]
         t1.record()
         t1.synchronize()
-        return t0.elapsed_time(t1)
+        return g, t0.elapsed_time(t1)
 
-    bwd_plain_ms = plain_backward()
-    bwd_bytes = (fields.numel() * 4 * 2 + pg.numel() * 4 + 2 * num_t * 4
-                 + num_t * 8 * 1024 * 4)
-
-    # K1b against autograd of the plain version at 256² / 20k Gaussians.
-    (gm, gs, gq, go, gsh), gcam = make_bench_scene(dev, seed=2,
-                                                   n=GRAD_N, size=GRAD_SIZE)
-    gcfg = RasterizeConfig(sh_degree=3)
-    budget = fit_pair_budget(int(count_pairs(gm, gs, gq, go, gsh, gcam, gcfg)))
-    gntx = GRAD_SIZE // 32
-    with torch.no_grad():
-        gproj = preprocess_gaussians(gm, gs, gq, go, gsh, gcam, 3, 32)
-        gf, gpg, gas, gtc, _ = build_pair_layout_counting(
-            gproj, gntx, gntx, budget, 32)
-    wr = torch.randn((gntx * gntx, 3, 1024), generator=gen, device=dev)
-    wt = torch.randn((gntx * gntx, 1024), generator=gen, device=dev)
-    grads = []
-    for fn in (comp.composite_tiles_fused, comp.composite_tiles_plain):
-        f = gf.detach().requires_grad_()
-        r, t, _ = fn(f, gpg, gas, gtc, gntx, gntx)
-        grads.append(torch.autograd.grad((r * wr).sum() + (t * wt).sum(), f)[0])
-    gk_, gp_ = grads
+    gk_, _ = composite_grad(comp.composite_tiles_fused)
+    gp_, bwd_plain_ms = composite_grad(comp.composite_tiles_plain)
     worst, err = 0.0, 0.0
     for col in range(9):
         scale = max(float(gp_[:, col].abs().max()), 1e-3)
         e = float((gk_[:, col] - gp_[:, col]).abs().max())
         err = max(err, e)
         worst = max(worst, e / (GRAD_RTOL_OF_MAX * scale))
-    print(f"  composite_backward at {GRAD_SIZE}² / {GRAD_N} Gaussians, "
-          f"budget {budget}: max |kernel - plain| = {err:.3g}, worst column "
-          f"at {worst:.3f} of its tolerance ({GRAD_RTOL_OF_MAX}·max|g|)")
+    print(f"  composite_backward at {WIDTH}² / {N_GAUSS} Gaussians, "
+          f"{int(tcount.sum())} pairs kept: max |kernel - plain| = {err:.3g}, "
+          f"worst column at {worst:.3f} of its tolerance "
+          f"({GRAD_RTOL_OF_MAX}·max|g|)")
     if not worst <= 1.0:
         raise AssertionError("composite backward kernel differs")
+    bwd_bytes = (fields.numel() * 4 * 2 + pg.numel() * 4 + 2 * num_t * 4
+                 + num_t * 8 * 1024 * 4)
 
-    # Render-level gradients of all five inputs: kernels on the card against
-    # the plain versions on the CPU, same inputs.
+    # Render-level gradients of all five inputs at 256² / 20k Gaussians:
+    # kernels on the card against the plain versions on the CPU, same inputs.
+    (gm, gs, gq, go, gsh), gcam = make_bench_scene(dev, seed=2,
+                                                   n=GRAD_N, size=GRAD_SIZE)
+    gcfg = RasterizeConfig(sh_degree=3)
+    budget = fit_pair_budget(int(count_pairs(gm, gs, gq, go, gsh, gcam, gcfg)))
+
     def render_grads(device):
         leaves = [x.detach().to(device).requires_grad_()
                   for x in (gm, gs, gq, go, gsh)]
@@ -382,13 +369,15 @@ def phase_render(dev, kernels):
           f"iteration {json.dumps(launches)}")
     if any(v == 0 for v in launches.values()):
         raise AssertionError("a kernel of the render path was never launched")
-    profile_window(step, iters=5)
-    return statistics.median(times)
+    median = statistics.median(times)
+    profile_window(step, iters=5, step_ms=median)
+    return median
 
 
-def profile_window(step, iters):
-    """Device time by kernel over a short steady window, and the device's
-    busy share of the window's wall time (torch.profiler)."""
+def profile_window(step, iters, step_ms):
+    """Device time by kernel over a short steady window (torch.profiler),
+    and the device's busy share of the window's wall time and of the
+    unprofiled median step `step_ms` (the profiler slows the host)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -409,7 +398,9 @@ def profile_window(step, iters):
         return
     print(f"  profile over {iters} iterations: device busy {busy_us / iters / 1e3:.3f} "
           f"ms of {wall_us / iters / 1e3:.3f} ms wall per iteration "
-          f"(busy share {busy_us / wall_us:.3f}); {len(kernels)} distinct "
+          f"(busy share {busy_us / wall_us:.3f}; of the unprofiled median "
+          f"{step_ms:.3f} ms: {busy_us / iters / 1e3 / step_ms:.3f}); "
+          f"{len(kernels)} distinct "
           f"kernels, {sum(e.count for e in kernels) / iters:.0f} launches per "
           f"iteration; top device time per iteration:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
@@ -486,11 +477,12 @@ def phase_fit(dev, kernels):
         step(idx)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"  fit step at {WIDTH}²: median {statistics.median(times):.3f} ms "
+    median = statistics.median(times)
+    print(f"  fit step at {WIDTH}²: median {median:.3f} ms "
           f"over {FIT_TIMED_STEPS} synchronised steps (min {min(times):.3f}, "
           f"max {max(times):.3f})")
     step = trainer.step_fn(FIT_STEPS + FIT_TIMED_STEPS)
-    profile_window(lambda: step(0), iters=5)
+    profile_window(lambda: step(0), iters=5, step_ms=median)
     return launches
 
 
@@ -513,6 +505,7 @@ def run_phase(name, fn, failures):
     print(f"[{name}] start", flush=True)
     try:
         result = fn()
+        torch.cuda.synchronize()  # a fault in the phase surfaces here
     except Exception:  # report, keep going, fail at the end
         traceback.print_exc()
         failures.append(name)

@@ -49,31 +49,6 @@ def test_build_tetgs_matches_jax(mesh):
                                    atol=1e-6, err_msg=name)
 
 
-def test_extract_keep_gaussians_matches_jax(mesh):
-    from youreditableavatar_tpu.models.tetgs import (
-        build_tetgs as jbuild, extract_keep_gaussians as jkeep,
-    )
-    from youreditableavatar_tpu_torch.models.tetgs import (
-        binding_from_numpy, extract_keep_gaussians, params_from_numpy,
-    )
-
-    verts, faces, colors = mesh
-    bj, pj = jbuild(verts, faces, colors, np.arange(len(faces)) % 40,
-                    sh_levels=2)
-    names = ("ori_points", "normals", "face_indices", "radii", "mesh_verts",
-             "mesh_faces", "face_to_global_tet_idx")
-    bt = binding_from_numpy({**{k: np.asarray(getattr(bj, k)) for k in names},
-                             "sh_levels": bj.sh_levels}, device=CPU)
-    pt = params_from_numpy({k: np.asarray(getattr(pj, k)) for k in PARAMS},
-                           device=CPU)
-    edit = np.array([3, 7, 11])
-    ref, got = jkeep(bj, pj, edit), extract_keep_gaussians(bt, pt, edit)
-    assert set(got) == set(ref) and len(got["xyz"]) > 0
-    for k, v in ref.items():
-        np.testing.assert_allclose(np.asarray(got[k]), np.asarray(v),
-                                   rtol=1e-6, err_msg=k)
-
-
 def test_expon_lr_schedule_matches_jax():
     from youreditableavatar_tpu.models.optimizer import expon_lr_schedule as js
     from youreditableavatar_tpu_torch.models.optimizer import (

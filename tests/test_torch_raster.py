@@ -162,6 +162,60 @@ def test_count_pairs_bench_scene():
     assert n_port == n_jax == 182_110
 
 
+def test_fit_pair_budget_matches_jax():
+    from youreditableavatar_tpu.ops.gaussian_raster.budget import (
+        fit_pair_budget as jfit,
+    )
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        PairOverflowError, fit_pair_budget,
+    )
+
+    for n in (0, 1, 4095, 4096, 5000, 49_152, 182_110, 1 << 20, 12_000_000):
+        for headroom in (1.0, 1.2, 1.3):
+            assert fit_pair_budget(n, headroom=headroom) == jfit(
+                n, headroom=headroom), (n, headroom)
+    with pytest.raises(PairOverflowError):
+        fit_pair_budget(1 << 24)
+
+
+@pytest.mark.parametrize("policy", ["grow", "raise", "warn"])
+def test_budget_governor_matches_jax(policy):
+    """The same diagnostics give the same configs, errors and warnings."""
+    import warnings
+
+    from youreditableavatar_tpu.ops.gaussian_raster import (
+        RasterizeConfig as JCfg,
+    )
+    from youreditableavatar_tpu.ops.gaussian_raster.budget import (
+        BudgetGovernor as JGov,
+    )
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        BudgetGovernor, RasterizeConfig,
+    )
+
+    def outcomes(gov, cfg):
+        seen = []
+        for step, (pairs, over) in enumerate(
+                ((100, 0), (9000, 0), (9000, 3), (100, 2))):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    new = gov.check(cfg, pairs, over, step=step)
+                except RuntimeError as e:  # each package's PairOverflowError
+                    seen.append((type(e).__name__, str(e)))
+                    continue
+            got = None if new is None else (new.pair_budget, new.tile_capacity)
+            seen.append((got, [str(w.message) for w in caught]))
+        return seen, gov.events
+
+    ref = outcomes(JGov(policy=policy), JCfg(pair_budget=8192,
+                                             tile_capacity=256))
+    got = outcomes(BudgetGovernor(policy=policy),
+                   RasterizeConfig(pair_budget=8192, tile_capacity=256))
+    assert got == ref
+    assert len(got[1]) == 3
+
+
 def test_empty_scene_and_checked_snapshot(scene, tmp_path):
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
         RasterizeConfig, render_gaussians, render_gaussians_checked,
@@ -293,6 +347,44 @@ class TestMathOps:
             registry.find("no-such-component")
         with pytest.raises(ValueError):
             registry.register("tetgs-init-trainer")(type("Other", (), {}))
+
+
+def test_plain_composite_counts_evaluations(scene):
+    """`return_evals` leaves the plain compositing's outputs as they are and
+    counts (pair, pixel) evaluations of live pixels: every slot of every
+    pixel when no pixel stops (this sparse scene; a faint copy), fewer but
+    no fewer than the contributions once opaque pairs stop pixels early."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp,
+    )
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.preprocess import (
+        preprocess_gaussians,
+    )
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        build_pair_layout_counting,
+    )
+
+    s, vm, w, h = scene
+    leaves = [torch.as_tensor(s[k]) for k in KEYS]
+    proj = preprocess_gaussians(*leaves[:4], None, torch_camera(vm, 0.8, 0.6, w, h),
+                                0, 32, colors_override=leaves[4])
+    fields, pg, astart, count, _ = build_pair_layout_counting(proj, 3, 2,
+                                                              1 << 13, 32)
+    rgb, t, cnt = comp.composite_tiles_plain(fields, pg, astart, count, 3, 2)
+    rgb2, t2, cnt2, evals = comp.composite_tiles_plain(
+        fields, pg, astart, count, 3, 2, return_evals=True)
+    assert torch.equal(rgb, rgb2) and torch.equal(t, t2) and torch.equal(cnt, cnt2)
+    every_slot = 1024 * int(count.sum())
+    assert evals == every_slot
+    faint, opaque = fields.clone(), fields.clone()
+    faint[:, 5] *= 1e-3
+    opaque[:, 5] *= 50.0  # α clamps at 0.99 over most of each footprint
+    *_, evals_faint = comp.composite_tiles_plain(
+        faint, pg, astart, count, 3, 2, return_evals=True)
+    assert evals_faint == every_slot
+    *_, cnt_opaque, evals_opaque = comp.composite_tiles_plain(
+        opaque, pg, astart, count, 3, 2, return_evals=True)
+    assert int(cnt_opaque.sum()) <= evals_opaque < every_slot
 
 
 @pytest.mark.cuda

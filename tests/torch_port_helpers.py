@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+
 def random_scene(seed=42, n=300, width=96, height=64, scale_hi=0.08):
     """The 300-Gaussian 96×64 scene of test_raster_pallas.py (numpy)."""
     rng = np.random.default_rng(seed)

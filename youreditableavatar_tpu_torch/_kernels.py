@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -89,8 +90,6 @@ def _digest() -> str:
 
 def build() -> Path:
     """Compile the sources (in parallel) and link the shared library."""
-    import time
-
     global BUILD_SECONDS
     out = BUILD_DIR / f"libyea_kernels_{_digest()}.so"
     if out.exists():

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Mapping, Optional
+from typing import Callable
 
 import torch
 
@@ -85,10 +85,8 @@ def make_tetgs_optimizer(
     opt: OptimizationParams,
     spatial_lr_scale: float,
     adam_eps: float = 1e-15,
-    train_mask: Optional[Mapping[str, bool]] = None,
 ) -> TetGSOptimizer:
-    """Optimizer over `params`; leaves whose `train_mask` entry is False are
-    left out (they never change, as under optax's set_to_zero mask)."""
+    """Adam over every leaf of `params`, one param group each."""
     pos_schedule = expon_lr_schedule(
         lr_init=opt.position_lr_init * spatial_lr_scale,
         lr_final=opt.position_lr_final * spatial_lr_scale,
@@ -106,7 +104,6 @@ def make_tetgs_optimizer(
     groups = [
         {"params": [getattr(params, name)], "lr": lrs[name], "name": name}
         for name in PARAM_NAMES
-        if train_mask is None or train_mask[name]
     ]
-    adam = torch.optim.Adam(groups, eps=adam_eps, foreach=False)
+    adam = torch.optim.Adam(groups, eps=adam_eps)
     return TetGSOptimizer(adam, pos_schedule)

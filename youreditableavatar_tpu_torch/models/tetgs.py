@@ -230,34 +230,6 @@ def scaling_regularizer(binding: TetGSBinding, params: TetGSParams,
         torch.clamp(count, min=1)
 
 
-def extract_keep_gaussians(binding: TetGSBinding, params: TetGSParams,
-                           edit_face_to_global_tet_idx: np.ndarray
-                           ) -> Dict[str, np.ndarray]:
-    """The frozen "keep" Gaussians: those whose parent face maps into the
-    given tet set (host numpy, between pipeline stages)."""
-    if binding.face_to_global_tet_idx is None:
-        raise ValueError("binding has no face_to_global_tet_idx")
-    f2t = binding.face_to_global_tet_idx.cpu().numpy()
-    keep_faces = np.flatnonzero(np.isin(f2t, np.asarray(edit_face_to_global_tet_idx)))
-    idx = np.flatnonzero(np.isin(binding.face_indices.cpu().numpy(), keep_faces))
-    with torch.no_grad():
-        means, _, quats, _, _ = gaussian_arrays(binding, params)
-
-    def host(x):
-        return x.detach().cpu().numpy()[idx]
-
-    return {
-        "xyz": host(means),
-        "opacity_raw": host(params.opacity_raw),
-        "log_scales": host(params.log_scales),
-        "quats": host(quats),
-        "sh_dc": host(params.sh_dc),
-        "sh_rest": host(params.sh_rest),
-        "face_indices": host(binding.face_indices),
-        "sh_levels": binding.sh_levels,
-    }
-
-
 def save_tetgs(path: str, binding: TetGSBinding, params: TetGSParams,
                **extra) -> None:
     """Checkpoint to npz, with the same keys as the JAX `save_tetgs`."""

@@ -53,10 +53,10 @@ def _check_tile_size(tile_size: int) -> None:
 
 
 def _plain_steps(s0, s1, fields_ext, pg_padded, starts, counts, px, py,
-                 trans, done, rgb, cnt):
-    """Pair slots s0 ≤ s < s1 of every tile, in the kernels' op order."""
+                 trans, done, rgb, cnt, evals=None):
+    """Pair slots s0 ≤ s < s1 of every tile, in the kernels' op order;
+    `evals`, when given, counts the evaluations that met a live pixel."""
     p_max = pg_padded.shape[0] - 1
-    evals = torch.zeros((), dtype=torch.int64, device=trans.device)
     for s in range(s0, s1):
         rows = fields_ext[pg_padded[torch.clamp(starts + s, max=p_max)].long()]
         live = (~done) & (s < counts)[:, None]
@@ -76,7 +76,8 @@ def _plain_steps(s0, s1, fields_ext, pg_padded, starts, counts, px, py,
         trans = torch.where(contrib, test_t, trans)
         cnt = cnt + contrib.to(torch.int32)
         done = done | trigger
-        evals = evals + live.sum()
+        if evals is not None:
+            evals = evals + live.sum()
     return trans, done, rgb, cnt, evals
 
 
@@ -102,8 +103,9 @@ def composite_tiles_plain(
         torch.zeros((num_t, 3, pix), dtype=torch.float32, device=dev),
         torch.zeros((num_t, pix), dtype=torch.int32, device=dev),
     )
+    if return_evals:
+        state += (torch.zeros((), dtype=torch.int64, device=dev),)
     max_count = int(counts.max()) if num_t else 0
-    evals = 0
     remat = torch.is_grad_enabled() and fields_ext.requires_grad
     for s0 in range(0, max_count, chunk):
         s1 = min(s0 + chunk, max_count)
@@ -112,9 +114,9 @@ def composite_tiles_plain(
             out = checkpoint(_plain_steps, *args, use_reentrant=False)
         else:
             out = _plain_steps(*args)
-        state, evals = out[:4], evals + int(out[4])
-    trans, _, rgb, cnt = state
-    return (rgb, trans, cnt, evals) if return_evals else (rgb, trans, cnt)
+        state = out if return_evals else out[:4]
+    trans, _, rgb, cnt = state[:4]
+    return (rgb, trans, cnt, int(state[4])) if return_evals else (rgb, trans, cnt)
 
 
 def _forward(fields_ext, pg_padded, starts, counts, ntx):

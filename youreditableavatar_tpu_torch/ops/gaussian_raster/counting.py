@@ -98,6 +98,20 @@ def rank_destinations(tile: Tensor, astart_ext: Tensor) -> Tensor:
     return dst
 
 
+def aligned_starts_ext(counts_ext: Tensor, num_tiles: int, chunk: int,
+                       padded_size: int) -> Tensor:
+    """(T+1,) int32 chunk-aligned start of each tile's slot range from the
+    (T+1,) histogram; the sentinel bin's start is `padded_size`."""
+    counts = counts_ext[:num_tiles]
+    aligned = ((counts + chunk - 1) // chunk) * chunk
+    return torch.cat([
+        torch.zeros(1, dtype=torch.int32, device=counts_ext.device),
+        torch.cumsum(aligned, 0)[:-1].to(torch.int32),
+        torch.full((1,), padded_size, dtype=torch.int32,
+                   device=counts_ext.device),
+    ])
+
+
 def counting_layout(
     tile: Tensor, num_tiles: int, chunk: int, padded_size: int,
 ) -> Tuple[Tensor, Tensor, Tensor]:
@@ -108,14 +122,6 @@ def counting_layout(
     chunk-aligned start of each tile's range; tile_count (T,) int32.
     """
     counts_ext = tile_histogram(tile, num_tiles)
-    counts = counts_ext[:num_tiles]
-    aligned = ((counts + chunk - 1) // chunk) * chunk
-    aligned_start = torch.cat([
-        torch.zeros(1, dtype=torch.int32, device=tile.device),
-        torch.cumsum(aligned, 0)[:-1].to(torch.int32),
-    ])
-    astart_ext = torch.cat([
-        aligned_start,
-        torch.full((1,), padded_size, dtype=torch.int32, device=tile.device),
-    ])
-    return rank_destinations(tile, astart_ext), aligned_start, counts
+    astart_ext = aligned_starts_ext(counts_ext, num_tiles, chunk, padded_size)
+    return (rank_destinations(tile, astart_ext), astart_ext[:num_tiles],
+            counts_ext[:num_tiles])
