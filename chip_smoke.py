@@ -11,14 +11,21 @@ prints no result):
                pair expansion, tile histogram and counting ranks bit-exact,
                compositing forward and its gradient at full width, the
                render's input gradients at 256² (20k Gaussians) against the
-               plain render on the CPU, plus each kernel's time, its plain
-               version's time and its bound at the main-path shapes.
+               plain render on the CPU, the mesh z-buffer resolve bit-exact
+               at 512² on the 81,920-face icosphere, plus each kernel's
+               time, its plain version's time and its bound at the
+               main-path shapes.
   4. render  — render forward + backward on the 512²/100k sphere-shell scene.
   5. fit     — the init-texture trainer (TetGSInitTrainer) for 50 steps at
                512² on an icosphere with 6 subdivisions (81,920 faces) and
                8 ring cameras; targets rendered from a colour-pattern copy.
-  6. a `kernels` JSON line: each kernel's launches on the main path (the
-     fit), error against its plain version, ms, plain ms and bound.
+  6. edit    — the edit-texture stage on the same icosphere: InpaintTrainer
+               (8 ring views, stub inpainter, the cap z > 0.1 editable) →
+               prepare_refine_guidance (8 turntable views) → RefineTrainer
+               (40 steps) → validate, at 512².
+  7. a `kernels` JSON line: each kernel's launches on its main path (the
+     fit; the edit stage for the mesh resolve), error against its plain
+     version, ms, plain ms and bound.
 The last line is {"ok": true, "device": {...}}.
 
 Weights and scenes are random, made from fixed seeds.
@@ -51,6 +58,19 @@ N_GAUSS = 100_000
 PAIR_BUDGET = 184_320  # bench.py's budget: 1440 × 128 ≥ the scene's pairs
 GRAD_SIZE, GRAD_N = 256, 20_000
 FIT_SUBDIV, FIT_VIEWS, FIT_STEPS, FIT_TIMED_STEPS = 6, 8, 50, 20
+# f32 operations per (pair, pixel) evaluation of the mesh z-buffer resolve:
+# 2 subtractions, 4 + 4 for l1 and l2, 2 for l0, 5 for z, 4 compares.
+MESH_OPS_PER_EVAL = 21
+# The edit phase: ring views per elevation, the fit-iteration ladder of the
+# view groups (2 / 3 / 3 views), turntable views, refine steps.
+EDIT_RING, EDIT_LADDER, EDIT_GROUPS = (2, 3, 3), (20, 16, 8), (2, 3)
+EDIT_TURNTABLE, EDIT_REFINE_STEPS, EDIT_TIMED_STEPS = 8, 40, 20
+EDIT_CAP_Z = 0.1  # vertices above it are editable
+# The kernels of the Gaussian render: the main path of `render` and `fit`.
+RENDER_KERNELS = ("tile_histogram", "counting_layout", "expand_pairs",
+                  "composite_forward", "composite_backward")
+EDIT_MIN_PAINTED = 0.9  # share of the seen editable vertices to paint
+EDIT_NO_TARGET_LOSS = 1e-3  # a fit loss below it: nothing left to paint
 # Kernel vs plain tolerances: the compositing forward repeats the plain
 # version's f32 ops (both use expf), so images agree to rounding; float
 # atomics reorder the backward's sums, held like the JAX suite's backends.
@@ -338,6 +358,66 @@ def phase_kernels(dev, report):
         max_abs_err=err, ms=bwd_ms, plain_ms=bwd_plain_ms,
         bound=bound(bwd_bytes, BWD_OPS_PER_EVAL * evals),
     )
+    report["mesh_resolve"] = check_mesh_resolve(dev)
+
+
+def check_mesh_resolve(dev):
+    """K5 against its plain version at the edit phase's shapes: the
+    81,920-face icosphere from the first ring view at 512², default
+    MeshRasterConfig. Everything must agree bit for bit."""
+    from youreditableavatar_tpu_torch.models.cameras import sample_ring_cameras
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    verts, faces = icosphere(FIT_SUBDIV)
+    cfg = raster.MeshRasterConfig()
+    cam = sample_ring_cameras(counts=EDIT_RING, height=HEIGHT,
+                              width=WIDTH)[0].raster_camera(dev)
+    with torch.no_grad():
+        _, _, args = raster.tile_face_lists(
+            torch.as_tensor(verts, device=dev),
+            torch.as_tensor(faces.astype(np.int32), device=dev), cam, cfg)
+        rows, face_s, starts, counts = args[:4]
+        (zk, fk, bk), (zp, fp, bp) = (raster.resolve_tiles(*args),
+                                      raster.resolve_tiles_plain(*args))
+        pairs = int(counts.sum())
+        mism = {"face_id": int((fk != fp).sum()), "z": int((zk != zp).sum()),
+                "bary": int((bk != bp).sum())}
+        err = max(float((zk - zp).abs().max()), float((bk - bp).abs().max()))
+        print(f"  mesh_resolve: {len(faces)} faces, {pairs} (face, tile) pairs "
+              f"of budget {cfg.pair_budget}, deepest tile {int(counts.max())}, "
+              f"{int((fk >= 0).sum())} covered pixels; mismatches against the "
+              f"plain version {json.dumps(mism)}, max |kernel - plain| = {err}")
+        if any(mism.values()):
+            raise AssertionError("mesh_resolve kernel differs from its plain version")
+        if not 0 < pairs < cfg.pair_budget:
+            raise AssertionError("the mesh raster's pair budget is too small")
+
+        # A ragged tile edge and depth ties: a 500×300 view with every face
+        # listed twice. The first copy must win every pixel.
+        cam2 = sample_ring_cameras(counts=(1,), height=300,
+                                   width=500)[0].raster_camera(dev)
+        _, _, args2 = raster.tile_face_lists(
+            torch.as_tensor(verts, device=dev),
+            torch.as_tensor(np.concatenate([faces, faces]).astype(np.int32),
+                            device=dev), cam2, cfg)
+        tied_k = raster.resolve_tiles(*args2)
+        tied_p = raster.resolve_tiles_plain(*args2)
+        same = all(torch.equal(a, b) for a, b in zip(tied_k, tied_p))
+        print(f"  mesh_resolve at 500×300 with every face twice: "
+              f"{int(args2[3].sum())} pairs, bit-equal to the plain version: "
+              f"{same}; largest visible face id {int(tied_k[1].max())} of "
+              f"{2 * len(faces)} faces")
+        if not (same and 0 <= int(tied_k[1].max()) < len(faces)):
+            raise AssertionError("mesh_resolve differs on ties or a ragged edge")
+        moved = (rows.numel() * 4 + face_s.numel() * 4 + 2 * starts.numel() * 4
+                 + WIDTH * HEIGHT * 16)
+        return dict(
+            max_abs_err=err,
+            ms=device_ms(lambda: raster.resolve_tiles(*args), 50),
+            plain_ms=device_ms(lambda: raster.resolve_tiles_plain(*args), 3,
+                               warmup=1),
+            bound=bound(moved, MESH_OPS_PER_EVAL * pairs * cfg.tile_size ** 2),
+        )
 
 
 def phase_render(dev, kernels):
@@ -358,7 +438,8 @@ def phase_render(dev, kernels):
     iters, warmup = 20, 3
     kernels.reset_launches()
     times = each_device_ms(step, iters, warmup=warmup)
-    launches = {k: v / (iters + warmup) for k, v in kernels.LAUNCHES.items()}
+    launches = {k: kernels.LAUNCHES[k] / (iters + warmup)
+                for k in RENDER_KERNELS}
     out = state["out"]
     if not bool(torch.isfinite(out["image"]).all()):
         raise AssertionError("non-finite render")
@@ -464,7 +545,7 @@ def phase_fit(dev, kernels):
           f"{trainer.stats[-1]['num_pairs']}; launches {json.dumps(launches)}")
     if not (np.all(np.isfinite(losses)) and last < first):
         raise AssertionError("the fit's loss did not fall or is not finite")
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k in RENDER_KERNELS):
         raise AssertionError("a kernel of the fit was never launched")
 
     rng = np.random.default_rng(1)
@@ -486,6 +567,218 @@ def phase_fit(dev, kernels):
     return launches
 
 
+def phase_edit(dev, kernels):
+    """InpaintTrainer → prepare_refine_guidance → RefineTrainer → validate."""
+    from youreditableavatar_tpu_torch.guidance.stub import StubInpainter
+    from youreditableavatar_tpu_torch.models.cameras import (
+        sample_circle_cameras, sample_ring_cameras)
+    from youreditableavatar_tpu_torch.models.tetgs import (
+        build_tetgs, extract_keep_gaussians)
+    from youreditableavatar_tpu_torch.models.tetgs_edit import build_edit_tetgs
+    from youreditableavatar_tpu_torch.models.textured_mesh import (
+        TexturedMeshModel)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import (
+        MeshRasterConfig, rasterize_mesh)
+    from youreditableavatar_tpu_torch.ops.sh import rgb_to_sh_dc
+    from youreditableavatar_tpu_torch.stages.edit_texture import (
+        InpaintConfig, InpaintTrainer, RefineConfig, RefineTrainer)
+    from youreditableavatar_tpu_torch.utils.graphics import inverse_sigmoid
+
+    # The fit phase's model as the stage-2 source: colour pattern, opaque.
+    verts, faces = icosphere(FIT_SUBDIV)
+    binding, params = build_tetgs(verts, faces, None, np.arange(len(faces)),
+                                  sh_levels=2, device=dev)
+    with torch.no_grad():
+        params.sh_dc.copy_(rgb_to_sh_dc(torch.as_tensor(
+            pattern_colors(binding.ori_points.cpu().numpy()),
+            dtype=torch.float32, device=dev))[:, None, :])
+        params.opacity_raw.fill_(float(inverse_sigmoid(torch.tensor(0.9))))
+    # The cap z > EDIT_CAP_Z is the editable region; its faces, re-indexed,
+    # are the edit mesh, the Gaussians of all other faces are kept.
+    in_cap = verts[faces].mean(1)[:, 2] > EDIT_CAP_Z
+    keep = extract_keep_gaussians(binding, params, np.flatnonzero(~in_cap))
+    used = np.unique(faces[in_cap])
+    remap = np.zeros(len(verts), np.int64)
+    remap[used] = np.arange(len(used))
+    ebinding, eparams = build_edit_tetgs(verts[used], remap[faces[in_cap]],
+                                         keep, sh_levels=1, device=dev)
+    editable = verts[:, 2] > EDIT_CAP_Z
+    mcfg = MeshRasterConfig()
+    mesh_model = TexturedMeshModel(verts, faces, editable, mcfg, device=dev)
+    ring = sample_ring_cameras(counts=EDIT_RING, height=HEIGHT, width=WIDTH)
+    turntable = sample_circle_cameras(EDIT_TURNTABLE, height=HEIGHT, width=WIDTH)
+    print(f"  {binding.n_gaussians} stage-2 Gaussians → {ebinding.n_keep} kept "
+          f"+ {ebinding.n_edit} edit disks on {int(in_cap.sum())} cap faces; "
+          f"{int(editable.sum())} editable vertices; {len(ring)} ring and "
+          f"{len(turntable)} turntable views at {WIDTH}²")
+
+    # Before the counted run: the mesh raster's pairs stay under its budget
+    # in every view, and the editable vertices that some ring view sees.
+    seen = np.zeros(len(verts), bool)
+    most = 0
+    for i, c in enumerate(ring + turntable):
+        out = rasterize_mesh(mesh_model.verts, mesh_model.faces,
+                             c.raster_camera(dev), mcfg)
+        most = max(most, int(out.num_pairs))
+        if i < len(ring):
+            fid = out.face_id.cpu().numpy()
+            seen[np.unique(faces[np.unique(fid[fid >= 0])])] = True
+    print(f"  mesh raster: at most {most} (face, tile) pairs in a view, "
+          f"budget {mcfg.pair_budget}")
+    if not most < mcfg.pair_budget:
+        raise AssertionError("the mesh raster's pair budget is too small")
+
+    a, b, c = EDIT_LADDER
+    cfg = InpaintConfig(iters_first=a, iters_second=b, iters_rest=c,
+                        first_group=EDIT_GROUPS[0], second_group=EDIT_GROUPS[1])
+    inpaint = InpaintTrainer(ebinding, eparams, mesh_model, ring,
+                             StubInpainter(), "a red hat", "blurry", cfg,
+                             device=dev)
+    print(f"  inpaint: auto-sized pair budget {inpaint.cfg.raster.pair_budget}, "
+          f"tile capacity {inpaint.cfg.raster.tile_capacity}")
+
+    # Log what the trainer does not keep: each fit step's loss and time,
+    # and the painted count after each view's back-projection.
+    fit_log, painted_log = [], []
+    fit_step, back_project = inpaint._fit_step, mesh_model.back_project
+
+    def logged_fit_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, diag = fit_step(*args)
+        torch.cuda.synchronize()
+        fit_log.append((loss, (time.perf_counter() - t0) * 1e3))
+        return loss, diag
+
+    def logged_back_project(*args, **kw):
+        out = back_project(*args, **kw)
+        painted_log.append(int(mesh_model.painted.sum()))
+        return out
+
+    inpaint._fit_step = logged_fit_step
+    mesh_model.back_project = logged_back_project
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint.inpaint_training(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_inpaint = time.perf_counter() - t0
+    blends = inpaint.prepare_refine_guidance(
+        turntable, torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    t_guidance = time.perf_counter() - t0 - t_inpaint
+    refine = RefineTrainer(ebinding, inpaint.params, turntable, blends,
+                           RefineConfig(num_iterations=EDIT_REFINE_STEPS,
+                                        key_views=(0, EDIT_TURNTABLE // 2)),
+                           device=dev)
+    refine_log = []
+    refine_step = refine.step
+
+    def logged_refine_step(view_idx):
+        loss, diag = refine_step(view_idx)
+        refine_log.append((view_idx, loss))
+        return loss, diag
+
+    refine.step = logged_refine_step
+    t1 = time.perf_counter()
+    refine.refined_editing(seed=0)
+    torch.cuda.synchronize()
+    t_refine = time.perf_counter() - t1
+    final = refine.validate(turntable)
+    launches = dict(kernels.LAUNCHES)
+    inpaint._fit_step, refine.step = fit_step, refine_step
+    mesh_model.back_project = back_project
+
+    # Checks.
+    images = blends + final
+    if not all(im.shape == (HEIGHT, WIDTH, 3) and np.isfinite(im).all()
+               for im in images):
+        raise AssertionError("a blend or validate image is not finite")
+    iters = [h["iters"] for h in inpaint.history]
+    if len(fit_log) != sum(iters):
+        raise AssertionError("a view's fit was restarted: the budget grew")
+    first_last, pos = [], 0
+    for n in iters:
+        first_last.append((float(fit_log[pos][0]), float(fit_log[pos + n - 1][0])))
+        pos += n
+    # A view that finds nothing left to paint starts at a loss of 0 (its
+    # target is its own render) and must stay there; every other view's
+    # loss must fall.
+    if not all(np.isfinite(l) and (l < f or f < EDIT_NO_TARGET_LOSS > l)
+               for f, l in first_last):
+        raise AssertionError(f"a view's fit loss did not fall: {first_last}")
+    share = float((mesh_model.painted & seen).sum()) / max(
+        int((editable & seen).sum()), 1)
+    grew = all(y >= x for x, y in zip(painted_log, painted_log[1:]))
+    if not (grew and painted_log[-1] > painted_log[0] > 0
+            and share >= EDIT_MIN_PAINTED):
+        raise AssertionError(f"painted set {painted_log}, share {share:.3f}")
+    by_view = {}
+    for vi, loss in refine_log:
+        by_view.setdefault(vi, []).append(float(loss))
+    again = [v for v in by_view.values() if len(v) > 1]
+    r_first, r_last = sum(v[0] for v in again), sum(v[-1] for v in again)
+    if not (len(refine_log) == EDIT_REFINE_STEPS and again
+            and np.isfinite(r_last) and r_last < r_first):
+        raise AssertionError(f"the refine loss did not fall: {by_view}")
+    if any(v == 0 for v in launches.values()):
+        raise AssertionError("a kernel of the edit stage was never launched")
+    fit_ms = statistics.median(ms for _, ms in fit_log)
+    print(f"  inpaint: {len(ring)} views, {sum(iters)} fit steps in "
+          f"{t_inpaint:.2f} s; fit step median {fit_ms:.3f} ms (synchronised; "
+          f"min {min(ms for _, ms in fit_log):.3f}, max "
+          f"{max(ms for _, ms in fit_log):.3f}); loss first → last per view "
+          + ", ".join(f"{f:.5f} → {l:.5f}" for f, l in first_last))
+    print(f"  painted vertices after each view {painted_log}: {share:.3f} of "
+          f"the {int((editable & seen).sum())} editable vertices a ring view sees")
+    print(f"  refine guidance: {len(blends)} blends in {t_guidance:.2f} s; "
+          f"refine: {EDIT_REFINE_STEPS} steps in {t_refine:.2f} s, pair budget "
+          f"{refine.cfg.raster.pair_budget}; summed loss of the "
+          f"{len(again)} views visited twice or more, first visit "
+          f"{r_first:.5f} → last {r_last:.5f}")
+    print(f"  launches over the stage {json.dumps(launches)}")
+
+    # Times of the three steps a user repeats.
+    cam0 = ring[0].raster_camera(dev)
+    view_ms = each_device_ms(lambda: mesh_model.render_view(cam0), 20)
+    rng = np.random.default_rng(2)
+    times = []
+    for _ in range(EDIT_TIMED_STEPS):
+        vi = int(rng.integers(0, len(turntable)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refine.step(vi)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    refine_ms = statistics.median(times)
+    print(f"  render_view at {WIDTH}²: median {statistics.median(view_ms):.3f} "
+          f"ms of device time (min {min(view_ms):.3f}, max {max(view_ms):.3f}); "
+          f"refine step: median {refine_ms:.3f} ms over {EDIT_TIMED_STEPS} "
+          f"synchronised steps (min {min(times):.3f}, max {max(times):.3f})")
+
+    # Profiles: one inpaint fit step (fresh copy of the weights, as each
+    # view's fit starts), one render_view, one refine step.
+    from youreditableavatar_tpu_torch.stages.edit_texture import (
+        make_edit_optimizer)
+
+    probe = inpaint.params.copy()
+    optimizer = make_edit_optimizer(probe, cfg.lr_sh, cfg.lr_opacity,
+                                    inpaint.train_mask)
+    view = mesh_model.render_view(cam0)
+    target = torch.as_tensor(blends[0], device=dev)
+    weight = (view["editable"] > 0.5).to(torch.float32)
+    print("  inpaint fit step:")
+    profile_window(lambda: fit_step(probe, optimizer, cam0, target, weight),
+                   iters=5, step_ms=fit_ms)
+    print("  render_view:")
+    profile_window(lambda: mesh_model.render_view(cam0), iters=5,
+                   step_ms=statistics.median(view_ms))
+    print("  refine step:")
+    profile_window(lambda: refine.step(0), iters=5, step_ms=refine_ms)
+    return launches
+
+
 SOURCES = {
     "tile_histogram": ("youreditableavatar_tpu_torch/csrc/counting.cu",
                        "youreditableavatar_tpu/ops/gaussian_raster/counting.py:89"),
@@ -497,6 +790,8 @@ SOURCES = {
                           "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:510"),
     "composite_backward": ("youreditableavatar_tpu_torch/csrc/composite.cu",
                            "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:867"),
+    "mesh_resolve": ("youreditableavatar_tpu_torch/csrc/mesh_resolve.cu",
+                     "youreditableavatar_tpu/ops/mesh_raster/raster.py:385"),
 }
 
 
@@ -548,6 +843,8 @@ def main() -> int:
     run_phase("render", lambda: phase_render(dev, _kernels), failures)
     launches = run_phase("fit", lambda: phase_fit(dev, _kernels),
                          failures) or {}
+    edit_launches = run_phase("edit", lambda: phase_edit(dev, _kernels),
+                              failures) or {}
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
@@ -558,7 +855,10 @@ def main() -> int:
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            # Each kernel's count from the run of its own main path.
+            "launches": (edit_launches if name == "mesh_resolve"
+                         else launches)[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from chip_smoke import icosphere
+from torch_port_helpers import single_threaded_torch  # noqa: F401  (fixture)
 
 CPU = "cpu"
 PARAMS = ("delta", "log_scales", "quats", "opacity_raw", "sh_dc", "sh_rest")

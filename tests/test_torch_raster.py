@@ -16,6 +16,7 @@ from torch_port_helpers import (
     cuda_device,  # noqa: F401  (fixture)
     jax_camera,
     random_scene,
+    single_threaded_torch,  # noqa: F401  (fixture)
     torch_camera,
 )
 

@@ -30,13 +30,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
-# Per-source flags. The expansion cull and the compositing α decisions must
-# repeat the plain PyTorch versions' f32 arithmetic op for op: no FMA
-# contraction there.
+# Per-source flags. The expansion cull, the compositing α decisions and the
+# z-buffer's inside/depth tests must repeat the plain PyTorch versions' f32
+# arithmetic op for op: no FMA contraction there.
 SOURCE_FLAGS: Dict[str, list] = {
     "counting.cu": [],
     "expand.cu": ["--fmad=false"],
     "composite.cu": ["--fmad=false"],
+    "mesh_resolve.cu": ["--fmad=false"],
 }
 
 KERNEL_NAMES = (
@@ -45,6 +46,7 @@ KERNEL_NAMES = (
     "expand_pairs",
     "composite_forward",
     "composite_backward",
+    "mesh_resolve",
 )
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
@@ -57,6 +59,7 @@ _SIGNATURES = {
     "yea_composite_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _P],
+    "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -230,6 +230,38 @@ def scaling_regularizer(binding: TetGSBinding, params: TetGSParams,
         torch.clamp(count, min=1)
 
 
+def extract_keep_gaussians(
+    binding: TetGSBinding,
+    params: TetGSParams,
+    edit_face_to_global_tet_idx: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Frozen "keep" Gaussians whose parent face maps into the given tet
+    set, as host arrays. Runs once between pipeline stages."""
+    if binding.face_to_global_tet_idx is None:
+        raise ValueError("binding has no face_to_global_tet_idx")
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    f2t = host(binding.face_to_global_tet_idx)
+    face_mask = np.isin(f2t, np.asarray(edit_face_to_global_tet_idx))
+    keep_faces = np.flatnonzero(face_mask)
+    face_indices = host(binding.face_indices)
+    idx = np.flatnonzero(np.isin(face_indices, keep_faces))
+
+    means, _, quats, _, _ = gaussian_arrays(binding, params)
+    return {
+        "xyz": host(means)[idx],
+        "opacity_raw": host(params.opacity_raw)[idx],
+        "log_scales": host(params.log_scales)[idx],
+        "quats": host(quats)[idx],
+        "sh_dc": host(params.sh_dc)[idx],
+        "sh_rest": host(params.sh_rest)[idx],
+        "face_indices": face_indices[idx],
+        "sh_levels": binding.sh_levels,
+    }
+
+
 def save_tetgs(path: str, binding: TetGSBinding, params: TetGSParams,
                **extra) -> None:
     """Checkpoint to npz, with the same keys as the JAX `save_tetgs`."""
