@@ -23,9 +23,16 @@ prints no result):
                (8 ring views, stub inpainter, the cap z > 0.1 editable) →
                prepare_refine_guidance (8 turntable views) → RefineTrainer
                (40 steps) → validate, at 512².
-  7. a `kernels` JSON line: each kernel's launches on its main path (the
-     fit; the edit stage for the mesh resolve), error against its plain
-     version, ms, plain ms and bound.
+  7. spatial — the spatial stage at full width (16 levels × 2^19 hash grid,
+               grid 64, 512² normal maps), cut in depth: ShapeInitializer on
+               the same icosphere (200 of 15,000 SDF steps, 10 of 501 normal
+               steps), then HumanEditTrainer with the stub SDS prior on a
+               fresh sphere field's cap z > 0.1, 6 + 30 steps from step 0
+               (8 hash levels) and 6 + 30 from step 8000 (16 levels).
+  8. a `kernels` JSON line: each kernel's launches on its main path (the
+     fit; the edit stage for the mesh resolve; the spatial stage for the
+     hash-grid scatter), error against its plain version, ms, plain ms,
+     library ms and bound.
 The last line is {"ok": true, "device": {...}}.
 
 Weights and scenes are random, made from fixed seeds.
@@ -76,6 +83,16 @@ EDIT_NO_TARGET_LOSS = 1e-3  # a fit loss below it: nothing left to paint
 # atomics reorder the backward's sums, held like the JAX suite's backends.
 FWD_ATOL = 1e-5
 GRAD_RTOL_OF_MAX = 5e-5
+# The hash-grid scatter (K4): float atomics add in a run-to-run order, so
+# each level's table gradient is held to this share of its largest entry.
+SCATTER_RTOL_OF_MAX = 1e-5
+SCATTER_POINTS = 65_536  # points of the K4 check: one edit-step requery
+# The spatial phase: depth cuts of the shape init (of 15,000 / 501 steps)
+# and the edit halves (warm-up + timed steps from each start step).
+INIT_SDF_STEPS, INIT_NORMAL_STEPS = 200, 10
+EDIT_WARM, EDIT_TIMED, EDIT_STARTS = 6, 30, (0, 8000)
+SPATIAL_GRID = 64  # tet-grid resolution of both spatial stages
+K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 
 
 def make_bench_scene(dev, seed=0, n=None, size=None):
@@ -359,6 +376,65 @@ def phase_kernels(dev, report):
         bound=bound(bwd_bytes, BWD_OPS_PER_EVAL * evals),
     )
     report["mesh_resolve"] = check_mesh_resolve(dev)
+    report["hash_scatter"] = check_hash_scatter(dev)
+
+
+def check_hash_scatter(dev):
+    """K4 against its plain version: the corner rows of 65,536 random
+    points through the production HashGridConfig's 16 levels (dense coarse
+    levels included), normal values, one row in 16 the padding sentinel.
+    The plain version sums sequentially on the CPU copy."""
+    from youreditableavatar_tpu_torch.ops import hashgrid as hg
+    from youreditableavatar_tpu_torch.ops import hashgrid_cuda as hc
+
+    cfg = hg.HashGridConfig()
+    t = cfg.table_size
+    gen = torch.Generator().manual_seed(4)
+    x = torch.rand((SCATTER_POINTS, 3), generator=gen)
+    idx = torch.stack([hg._level_corners(x, res, t)[0].reshape(-1)
+                       for res in cfg.level_resolutions()]).to(torch.int32)
+    idx[:, ::16] = t
+    v0 = torch.randn(idx.shape, generator=gen)
+    v1 = torch.randn(idx.shape, generator=gen)
+    levels, rows = idx.shape
+    t0 = time.perf_counter()
+    ref = hc.hash_scatter_add_plain(idx, v0, v1, t)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    idx_d, v0_d, v1_d = (a.to(dev) for a in (idx, v0, v1))
+    out = hc.hash_scatter_add(idx_d, v0_d, v1_d, t).cpu()
+    errs = [(float((out[l] - ref[l]).abs().max()), float(ref[l].abs().max()))
+            for l in range(levels)]
+    worst = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
+    dense = sum((r + 1) ** 3 <= t for r in cfg.level_resolutions())
+    print(f"  hash_scatter: {levels} levels ({dense} dense) × {rows} rows into "
+          f"{levels} × {t} × 2, vector atomics {hc.vector_atomics()}; "
+          f"max |card - cpu plain| per level "
+          + ", ".join(f"{e:.3g}" for e, _ in errs)
+          + f"; worst level at {worst:.3f} of its tolerance "
+          f"({SCATTER_RTOL_OF_MAX}·max|plain|); cpu plain {cpu_ms:.1f} ms")
+    if not worst <= 1.0:
+        raise AssertionError("hash_scatter kernel differs from its plain version")
+    # index_add_ over the same rows into a flattened table with one dump
+    # row for the sentinels (indices prepared outside the timing).
+    level = torch.arange(levels, device=dev)[:, None]
+    flat = torch.where(idx_d < t, level * t + idx_d.long(),
+                       torch.full_like(level, levels * t)).reshape(-1)
+    vals = torch.stack([v0_d, v1_d], -1).reshape(-1, 2)
+    times = each_device_ms(lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t), 30)
+    out = dict(
+        max_abs_err=max(e for e, _ in errs),
+        ms=statistics.median(times),
+        plain_ms=device_ms(lambda: hc.hash_scatter_add_plain(
+            idx_d, v0_d, v1_d, t), 10),
+        library_ms=device_ms(lambda: torch.zeros(
+            (levels * t + 1, 2), device=dev).index_add_(0, flat, vals), 10),
+        bound=bound(levels * rows * 12 + levels * t * 2 * 4, 2 * levels * rows),
+    )
+    print(f"  hash_scatter: median {out['ms']:.4f} ms over 30 launches (min "
+          f"{min(times):.4f}, max {max(times):.4f}), zeroing included; bound "
+          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}; plain version on the "
+          f"card {out['plain_ms']:.4f} ms; index_add_ {out['library_ms']:.4f} ms")
+    return out
 
 
 def check_mesh_resolve(dev):
@@ -722,7 +798,7 @@ def phase_edit(dev, kernels):
     if not (len(refine_log) == EDIT_REFINE_STEPS and again
             and np.isfinite(r_last) and r_last < r_first):
         raise AssertionError(f"the refine loss did not fall: {by_view}")
-    if any(v == 0 for v in launches.values()):
+    if any(launches[k] == 0 for k in RENDER_KERNELS + ("mesh_resolve",)):
         raise AssertionError("a kernel of the edit stage was never launched")
     fit_ms = statistics.median(ms for _, ms in fit_log)
     print(f"  inpaint: {len(ring)} views, {sum(iters)} fit steps in "
@@ -779,6 +855,167 @@ def phase_edit(dev, kernels):
     return launches
 
 
+def phase_spatial(dev, kernels):
+    """Stages 0–1 at full width: ShapeInitializer, then HumanEditTrainer."""
+    from youreditableavatar_tpu_torch.data.camera_sampler import (
+        RandomCameraConfig)
+    from youreditableavatar_tpu_torch.guidance.prompts import PromptProcessor
+    from youreditableavatar_tpu_torch.guidance.sds import SDSConfig, SDSGuidance
+    from youreditableavatar_tpu_torch.guidance.stub import (
+        StubDiffusionPrior, StubPromptEncoder)
+    from youreditableavatar_tpu_torch.models.geometry import TetGeometry
+    from youreditableavatar_tpu_torch.models.sdf import SDFField, SDFFieldConfig
+    from youreditableavatar_tpu_torch.native import MeshSDF
+    from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
+    from youreditableavatar_tpu_torch.stages.spatial import (
+        HumanEditConfig, HumanEditTrainer, ShapeInitConfig, ShapeInitializer,
+        align_anchor_mesh)
+
+    # ---- shape init on the icosphere (stage 0) ----
+    verts, faces = icosphere(FIT_SUBDIV)
+    body, _ = align_anchor_mesh(verts.astype(np.float64))
+    field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.4))
+    geometry = TetGeometry(field, SPATIAL_GRID, device=dev)
+    cfg = ShapeInitConfig(
+        sdf_iters=INIT_SDF_STEPS, normal_iters=INIT_NORMAL_STEPS,
+        normal_height=HEIGHT, normal_width=WIDTH,
+        camera=dataclasses.replace(ShapeInitConfig().camera, height=HEIGHT,
+                                   width=WIDTH))
+    init = ShapeInitializer(field, geometry, cfg, device=dev)
+    stamps = {"sdf": [], "normal": []}
+    draw = init.draw
+
+    def timed_draw(phase, step):  # one call at the start of every step
+        if phase in stamps:
+            torch.cuda.synchronize()
+            stamps[phase].append(time.perf_counter())
+        return draw(phase, step)
+
+    init.draw = timed_draw
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, info = init.run(body, faces, seed=0)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    init_launches = dict(kernels.LAUNCHES)
+    init_peak = torch.cuda.max_memory_allocated() / 2**20
+    sdf_ms = statistics.median(np.diff(stamps["sdf"]) * 1e3)
+    normal_ms = statistics.median(
+        np.diff(stamps["normal"] + [t_end]) * 1e3)
+    trace = {k: [float(x) for x in v] for k, v in init.trace.items()}
+    with torch.no_grad():
+        mt = geometry.isosurface(params, level_mask=field.level_mask(0, dev))
+        rng = np.random.default_rng(5)
+        probe = rng.uniform(-0.95, 0.95, (20_000, 3)).astype(np.float32)
+        pred = field.forward_sdf(params, torch.as_tensor(probe, device=dev),
+                                 field.level_mask(0, dev)).cpu().numpy()
+    gt = MeshSDF(body, faces)(probe)
+    corr = float(np.corrcoef(pred, gt)[0, 1])
+    # One launch per SDF step; per normal step one per 262,144-point chunk
+    # of the grid (2 at grid 64) and one for the anchor points.
+    chunks = -(-(SPATIAL_GRID + 1) ** 3 // 262_144)
+    k4_expect = INIT_SDF_STEPS + (chunks + 1) * INIT_NORMAL_STEPS
+    print(f"  shape init on {len(faces)} faces: MeshSDF native "
+          f"{init.using_native}; pool of {cfg.sdf_pool_size} points + setup "
+          f"{stamps['sdf'][0] - t0:.2f} s; SDF step median {sdf_ms:.3f} ms "
+          f"over {INIT_SDF_STEPS} steps, loss {trace['sdf'][0]:.5f} → "
+          f"{trace['sdf'][-1]:.6f}; normal step median {normal_ms:.3f} ms over "
+          f"{INIT_NORMAL_STEPS} steps at {cfg.normal_height}², loss "
+          f"{trace['normal'][0]:.5f} → {trace['normal'][-1]:.5f}; launches "
+          f"{json.dumps(init_launches)} (hash_scatter per SDF step 1, per "
+          f"normal step {chunks + 1}); isosurface {int(mt.num_verts)} vertices, "
+          f"{int(mt.num_faces)} faces; field vs mesh SDF on 20,000 probes: "
+          f"corr {corr:.4f}; peak memory {init_peak:.0f} MiB")
+    if not init.using_native:
+        raise AssertionError("MeshSDF fell back to numpy")
+    losses = trace["sdf"] + trace["normal"]
+    if not (np.all(np.isfinite(losses)) and trace["sdf"][-1] < trace["sdf"][0]):
+        raise AssertionError("the shape init's loss did not fall or is not finite")
+    if init_launches["hash_scatter"] != k4_expect:
+        raise AssertionError(f"hash_scatter launched {init_launches['hash_scatter']} "
+                             f"times in the shape init, not {k4_expect}")
+    if not (corr > 0.9 and 0 < int(mt.num_faces) <= geometry.budgets.mt_faces
+            and int(mt.num_verts) <= geometry.budgets.mt_verts):
+        raise AssertionError("the fitted field does not follow the mesh")
+    # Profile: a short shape init (1 SDF + 3 normal steps; a pool of
+    # 200,000 points keeps the host BVH queries out of the way).
+    short = ShapeInitializer(field, geometry, dataclasses.replace(
+        cfg, sdf_iters=1, normal_iters=3, sdf_pool_size=200_000), device=dev)
+    print("  shape init, 1 SDF + 3 normal steps:")
+    profile_window(lambda: short.run(body, faces, seed=1), iters=1,
+                   step_ms=sdf_ms + 3 * normal_ms)
+
+    # ---- SDS geometry edit (stage 1), bench_spatial's operating point ----
+    field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.45))
+    params = field.init_params(0, device=dev)
+    geometry = TetGeometry(field, SPATIAL_GRID, device=dev)
+    with torch.no_grad():
+        mt = geometry.isosurface(params)
+        fc = mt.verts[mt.faces.long()].mean(1)
+        edit_faces = (fc[:, 2] > EDIT_CAP_Z) & mt.faces_valid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = geometry.partition_init(params, edit_faces, frozen_mt=mt)
+    torch.cuda.synchronize()
+    t_part = time.perf_counter() - t0
+    prior = StubDiffusionPrior(device=dev)
+    guidance = SDSGuidance(prior, SDSConfig(guidance_scale=7.5))
+    cache = kernels.BUILD_DIR / "text_embeddings"
+    prompts = PromptProcessor("a red down jacket", "low quality",
+                              StubPromptEncoder(device=dev),
+                              cache_dir=str(cache), model_name="bench-stub")
+    ecfg = HumanEditConfig(camera=RandomCameraConfig(height=HEIGHT, width=WIDTH))
+    mcfg = MeshRasterConfig()
+    trainer = HumanEditTrainer(field, geometry, part, params, guidance,
+                               prompts, prompts, ecfg, mcfg, device=dev)
+    print(f"  edit: isosurface {int(mt.num_faces)} faces, "
+          f"{int(edit_faces.sum())} editable; partition_init {t_part:.2f} s: "
+          f"{part.live_vert_idx.numel()} live vertices, "
+          f"{part.update_tet_idx.numel()} update tets, keep mesh "
+          f"{int(part.keep_mesh.num_faces)} faces")
+    for start in EDIT_STARTS:
+        trainer.global_step = start
+        for _ in range(EDIT_WARM):
+            trainer.train_step(seed=1)
+        before = dict(kernels.LAUNCHES)
+        recs, times = [], []
+        for _ in range(EDIT_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs.append(trainer.train_step(seed=1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: (kernels.LAUNCHES[k] - before[k]) / EDIT_TIMED
+                    for k in ("hash_scatter", "mesh_resolve")}
+        median = statistics.median(times)
+        pairs = max(r["mesh_pairs"] for r in recs)
+        n_active = min(8 + start // 1000, 16)
+        print(f"  edit from step {start} ({n_active} hash levels): step median "
+              f"{median:.3f} ms over {EDIT_TIMED} synchronised steps (min "
+              f"{min(times):.3f}, max {max(times):.3f}); loss first "
+              f"{recs[0]['loss']:.4f} last {recs[-1]['loss']:.4f}; sds "
+              f"{recs[-1]['sds']:.4f}, recon {recs[-1]['recon']:.3g}, nc "
+              f"{recs[-1]['nc']:.5f}; launches per step {json.dumps(per_step)}; "
+              f"mesh pairs at most {int(pairs)} of budget {mcfg.pair_budget}")
+        if not all(np.isfinite(v) for r in recs for v in r.values()):
+            raise AssertionError("a non-finite edit loss")
+        if per_step["hash_scatter"] != K4_PER_EDIT_STEP:
+            raise AssertionError("hash_scatter did not launch 3 times per edit step")
+        if not pairs < mcfg.pair_budget:
+            raise AssertionError("the mesh raster's pair budget is too small")
+        profile_window(lambda: trainer.train_step(seed=1), iters=5,
+                       step_ms=median)
+    moved = float((trainer.params.grid.detach()
+                   - trainer.frozen_params.grid).abs().sum())
+    print(f"  parameters moved: Σ|Δ table| = {moved:.6g}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not (np.isfinite(moved) and moved > 0):
+        raise AssertionError("the edit did not move the parameters")
+    return dict(kernels.LAUNCHES)
+
+
 SOURCES = {
     "tile_histogram": ("youreditableavatar_tpu_torch/csrc/counting.cu",
                        "youreditableavatar_tpu/ops/gaussian_raster/counting.py:89"),
@@ -792,6 +1029,8 @@ SOURCES = {
                            "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:867"),
     "mesh_resolve": ("youreditableavatar_tpu_torch/csrc/mesh_resolve.cu",
                      "youreditableavatar_tpu/ops/mesh_raster/raster.py:385"),
+    "hash_scatter": ("youreditableavatar_tpu_torch/csrc/hash_scatter.cu",
+                     "youreditableavatar_tpu/ops/hashgrid_pallas.py:148"),
 }
 
 
@@ -839,15 +1078,20 @@ def main() -> int:
     run_phase("build", build, failures)
     if failures:
         return 1
-    run_phase("kernels", lambda: phase_kernels(dev, report), failures)
-    run_phase("render", lambda: phase_render(dev, _kernels), failures)
-    launches = run_phase("fit", lambda: phase_fit(dev, _kernels),
-                         failures) or {}
-    edit_launches = run_phase("edit", lambda: phase_edit(dev, _kernels),
-                              failures) or {}
+    phases = {
+        "kernels": lambda: phase_kernels(dev, report),
+        "render": lambda: phase_render(dev, _kernels),
+        "fit": lambda: phase_fit(dev, _kernels),
+        "edit": lambda: phase_edit(dev, _kernels),
+        "spatial": lambda: phase_spatial(dev, _kernels),
+    }
+    results = {name: run_phase(name, fn, failures)
+               for name, fn in phases.items()}
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
+    # Each kernel's launches come from the run of its own main path.
+    main_path = {"mesh_resolve": "edit", "hash_scatter": "spatial"}
 
     kernels = []
     for name in _kernels.KERNEL_NAMES:
@@ -856,9 +1100,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # Each kernel's count from the run of its own main path.
-            "launches": (edit_launches if name == "mesh_resolve"
-                         else launches)[name],
+            "launches": results[main_path.get(name, "fit")][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),

@@ -114,3 +114,79 @@ def leaves(obj, names):
         out[name] = (x.detach().cpu().numpy() if torch.is_tensor(x)
                      else np.asarray(x))
     return out
+
+
+# ---- the spatial stage (slice 3) ---------------------------------------
+
+# tests/test_spatial.py's field and budgets: 4 levels × 2^13, 32 neurons.
+SMALL_GRID = dict(n_levels=4, n_features_per_level=2, log2_hashmap_size=13,
+                  base_resolution=4, per_level_scale=1.5)
+SMALL_BUDGETS = dict(mt_verts=4096, mt_faces=8192, compact=2048,
+                     subdiv_mid=8192, fine_mt_verts=8192, fine_mt_faces=16384)
+
+
+def small_fields(sdf_bias_radius=0.4):
+    """(JAX SDFField, port SDFField) of test_spatial.py's small field."""
+    from youreditableavatar_tpu.models.sdf import SDFField, SDFFieldConfig
+    from youreditableavatar_tpu.ops.hashgrid import HashGridConfig
+    from youreditableavatar_tpu_torch.models import sdf as tsdf
+    from youreditableavatar_tpu_torch.ops import hashgrid as thg
+
+    kw = dict(n_neurons=32, sdf_bias="sphere", sdf_bias_radius=sdf_bias_radius)
+    return (SDFField(SDFFieldConfig(grid=HashGridConfig(**SMALL_GRID), **kw)),
+            tsdf.SDFField(tsdf.SDFFieldConfig(
+                grid=thg.HashGridConfig(**SMALL_GRID), **kw)))
+
+
+def to_numpy_tree(tree):
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def carry_params(jax_params):
+    """A JAX field pytree as the port's `SDFParams` on the CPU."""
+    from youreditableavatar_tpu_torch.models.sdf import sdf_params_from_numpy
+
+    return sdf_params_from_numpy(to_numpy_tree(jax_params), device="cpu")
+
+
+def small_geometries(resolution=10):
+    """(JAX TetGeometry, port TetGeometry, JAX params, port params) of the
+    small field with parameters from PRNGKey(0)."""
+    import jax
+
+    from youreditableavatar_tpu.models.geometry import (
+        GeometryBudgets as JB, TetGeometry as JG)
+    from youreditableavatar_tpu_torch.models.geometry import (
+        GeometryBudgets as TB, TetGeometry as TG)
+
+    jf, tf = small_fields()
+    jp = jf.init_params(jax.random.PRNGKey(0))
+    return (JG(jf, resolution, JB(**SMALL_BUDGETS)),
+            TG(tf, resolution, TB(**SMALL_BUDGETS), device="cpu"),
+            jp, carry_params(jp))
+
+
+def partitions(jgeom, tgeom, jp, tp):
+    """Both packages' partitions of the cap z > 0.1 of the frozen surface."""
+    import jax.numpy as jnp
+
+    mt = jgeom.isosurface(jp)
+    fc = np.asarray(mt.verts)[np.asarray(mt.faces)].mean(1)
+    edit = np.asarray(jnp.asarray(fc[:, 2] > 0.1) & mt.faces_valid)
+    jpart = jgeom.partition_init(jp, jnp.asarray(edit), frozen_mt=mt)
+    tpart = tgeom.partition_init(tp, torch.tensor(edit))
+    return jpart, tpart, edit
+
+
+def assert_mesh_close(tm, jm, atol=1e-6, err=""):
+    """Budgeted meshes: integer fields equal, vertices to `atol`."""
+    for name in jm._fields:
+        a = np.asarray(getattr(jm, name))
+        b = getattr(tm, name).detach().numpy()
+        if name == "verts":
+            np.testing.assert_allclose(b, a, rtol=0, atol=atol,
+                                       err_msg=f"{err} {name}")
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=f"{err} {name}")

@@ -12,17 +12,25 @@ passes `device="cpu"`.
 
 Sub-packages:
   stages/             init_texture (TetGSInitTrainer), edit_texture
-                      (InpaintTrainer, RefineTrainer)
+                      (InpaintTrainer, RefineTrainer), spatial
+                      (ShapeInitializer, HumanEditTrainer), export
   models/             tetgs, tetgs_edit, textured_mesh, optimizer, cameras,
-                      colmap
-  guidance/           base (protocols), stub (StubInpainter,
-                      StubPromptEncoder)
+                      colmap, mlp, sdf (SDFField), geometry (TetGeometry),
+                      part_renderer
+  data/               camera_sampler (random local/global cameras)
+  guidance/           base (protocols), stub (StubDiffusionPrior,
+                      StubInpainter, StubPromptEncoder), sds, prompts,
+                      prompt_library, sd_layers (conv2d)
+  native/             MeshSDF (the C++ BVH signed distance, built with g++)
   ops/gaussian_raster the Gaussian-splat render (kernels K1f, K1b, K2, K3a,
                       K3b)
   ops/mesh_raster     the mesh visibility rasterizer (kernel K5) and the
                       differentiable interpolation over it
-  ops/                covariance, image_losses, knn, morphology, quaternion,
-                      segments, sh
-  utils/              config, device, graphics, registry, saving, schedule
+  ops/hashgrid        the hash-grid encoding; its table gradient is kernel
+                      K4 (ops/hashgrid_cuda)
+  ops/                covariance, image_losses, knn, marching_tets,
+                      morphology, quaternion, segments, sh
+  utils/              config, device, graphics, optim, registry, saving,
+                      schedule
   csrc/, _kernels.py  the CUDA sources and their loader
 """

@@ -38,6 +38,7 @@ SOURCE_FLAGS: Dict[str, list] = {
     "expand.cu": ["--fmad=false"],
     "composite.cu": ["--fmad=false"],
     "mesh_resolve.cu": ["--fmad=false"],
+    "hash_scatter.cu": [],
 }
 
 KERNEL_NAMES = (
@@ -47,11 +48,13 @@ KERNEL_NAMES = (
     "composite_forward",
     "composite_backward",
     "mesh_resolve",
+    "hash_scatter",
 )
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "yea_tile_histogram": [_P, _P, _I, _I, _P],
     "yea_counting_layout": [_P, _P, _P, _P, _I, _I, _P],
@@ -60,6 +63,8 @@ _SIGNATURES = {
     "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
+    "yea_hash_scatter_vector_atomics": [],
 }
 
 _lock = threading.Lock()
