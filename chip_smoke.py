@@ -10,11 +10,13 @@ prints no result):
   3. kernels — every kernel against its plain PyTorch version on the card:
                pair expansion, tile histogram and counting ranks bit-exact,
                compositing forward and its gradient at full width, the
-               render's input gradients at 256² (20k Gaussians) against the
-               plain render on the CPU, the mesh z-buffer resolve bit-exact
-               at 512² on the 81,920-face icosphere, plus each kernel's
-               time, its plain version's time and its bound at the
-               main-path shapes.
+               per-pair compositing backward (K6) over the same layout's
+               gathered rows (two launches bit-identical; the gather and
+               its backward timed apart), the render's input gradients at
+               256² (20k Gaussians) against the plain render on the CPU,
+               the mesh z-buffer resolve bit-exact at 512² on the
+               81,920-face icosphere, plus each kernel's time, its plain
+               version's time and its bound at the main-path shapes.
   4. render  — render forward + backward on the 512²/100k sphere-shell scene.
   5. fit     — the init-texture trainer (TetGSInitTrainer) for 50 steps at
                512² on an icosphere with 6 subdivisions (81,920 faces) and
@@ -29,10 +31,15 @@ prints no result):
                steps), then HumanEditTrainer with the stub SDS prior on a
                fresh sphere field's cap z > 0.1, 6 + 30 steps from step 0
                (8 hash levels) and 6 + 30 from step 8000 (16 levels).
-  8. a `kernels` JSON line: each kernel's launches on its main path (the
+  8. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
+               on the fit phase's icosphere and 8 ring views at 512²: its
+               first step against the single-device render and loss, 2 and
+               4 tile-row bands in one process against the unsharded image
+               and gradients, then 20 timed steps whose loss must fall.
+  9. a `kernels` JSON line: each kernel's launches on its main path (the
      fit; the edit stage for the mesh resolve; the spatial stage for the
-     hash-grid scatter), error against its plain version, ms, plain ms,
-     library ms and bound.
+     hash-grid scatter; the sharded step for the per-pair backward), error
+     against its plain version, ms, plain ms, library ms and bound.
 The last line is {"ok": true, "device": {...}}.
 
 Weights and scenes are random, made from fixed seeds.
@@ -93,6 +100,11 @@ INIT_SDF_STEPS, INIT_NORMAL_STEPS = 200, 10
 EDIT_WARM, EDIT_TIMED, EDIT_STARTS = 6, 30, (0, 8000)
 SPATIAL_GRID = 64  # tet-grid resolution of both spatial stages
 K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
+# The sharded phase: timed steps, the band counts checked in one process,
+# and the kernels its step launches once per view.
+SHARDED_STEPS, SHARDED_BANDS = 20, (2, 4)
+SHARDED_KERNELS = ("tile_histogram", "counting_layout", "expand_pairs",
+                   "composite_forward", "composite_backward_pairs")
 
 
 def make_bench_scene(dev, seed=0, n=None, size=None):
@@ -375,8 +387,88 @@ def phase_kernels(dev, report):
         max_abs_err=err, ms=bwd_ms, plain_ms=bwd_plain_ms,
         bound=bound(bwd_bytes, BWD_OPS_PER_EVAL * evals),
     )
+    report["composite_backward_pairs"] = check_composite_pairs(
+        fields, pg, astart, tcount, ntx, nty, rk, fk, drgb, dt, evals)
     report["mesh_resolve"] = check_mesh_resolve(dev)
     report["hash_scatter"] = check_hash_scatter(dev)
+
+
+def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
+                          drgb, dt, evals):
+    """K6 (and K1f over direct rows) at the 512²/100k layout: the rows are
+    gathered as the sharded step gathers them. The forward must equal the
+    indexed K1f bit for bit; K6's rows must match autograd of the plain
+    version within GRAD_RTOL_OF_MAX·max|g| per column on the real pairs, be
+    zero on every other slot, and repeat bit for bit on a second launch."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        gather_pair_rows)
+
+    rows = gather_pair_rows(fields, pg)
+    p_pad, num_t = rows.shape[0], astart.shape[0]
+    with torch.no_grad():
+        rk, fk, _ = comp._forward_rows(rows, astart, tcount, ntx)
+    if not (torch.equal(rk, rgb) and torch.equal(fk, final_t)):
+        raise AssertionError("K1f over direct rows differs from K1f indexed")
+    k1 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx)
+    k2 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx)
+    r = rows.detach().requires_grad_()
+    out = comp.composite_tiles_pairs_plain(r, astart, tcount, ntx, nty)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    gp = torch.autograd.grad((out[0] * drgb).sum() + (out[1] * dt).sum(), r)[0]
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1)
+    slot = torch.arange(p_pad, device=rows.device)
+    owner = torch.searchsorted(astart, slot.to(torch.int32), right=True) - 1
+    real = (slot - astart[owner]) < tcount[owner]
+    worst, err = 0.0, 0.0
+    for col in range(9):
+        scale = max(float(gp[real, col].abs().max()), 1e-3)
+        e = float((k1[real, col] - gp[real, col]).abs().max())
+        err = max(err, e)
+        worst = max(worst, e / (GRAD_RTOL_OF_MAX * scale))
+    stray = float(k1[~real].abs().max()) + float(k1[:, 9:].abs().max())
+    same = torch.equal(k1, k2)
+    print(f"  composite_backward_pairs (K6): P_pad {p_pad}, {int(real.sum())} "
+          f"real pairs; max |kernel - plain| = {err:.3g}, worst column at "
+          f"{worst:.3f} of its tolerance ({GRAD_RTOL_OF_MAX}·max|g|); off "
+          f"real pairs and columns 9-15 max |row| = {stray}; two launches "
+          f"bit-identical: {same}; K1f over direct rows equals K1f indexed")
+    if not (worst <= 1.0 and stray == 0.0 and same):
+        raise AssertionError("composite_backward_pairs differs from its plain version")
+
+    # The row gather of the sharded step and its backward, timed apart;
+    # `fields[pg]`'s sort-based index backward beside them.
+    g_rows = torch.randn(rows.shape, device=rows.device)
+    f = fields.detach().requires_grad_()
+    gathered = gather_pair_rows(f, pg)
+    indexed = f[pg.long()]
+    gather_ms = device_ms(lambda: gather_pair_rows(fields, pg), 50)
+    gather_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        gathered, f, g_rows, retain_graph=True), 20)
+    indexed_bwd_ms = device_ms(lambda: torch.autograd.grad(
+        indexed, f, g_rows, retain_graph=True), 5)
+    print(f"  pair-row gather ({p_pad} rows of {fields.shape[0]}): index_select "
+          f"{gather_ms:.4f} ms, its backward (index_add_) {gather_bwd_ms:.4f} "
+          f"ms; fields[pg] backward (sort-based index backward) "
+          f"{indexed_bwd_ms:.4f} ms")
+    times = each_device_ms(lambda: comp.backward_pairs(
+        rows, astart, tcount, rk, fk, drgb, dt, ntx), 20)
+    moved = (2 * p_pad * rows.shape[1] * 4 + 2 * num_t * 4
+             + num_t * 8 * 1024 * 4)
+    result = dict(max_abs_err=err, ms=statistics.median(times),
+                  plain_ms=plain_ms,
+                  bound=bound(moved, BWD_OPS_PER_EVAL * evals))
+    print(f"  composite_backward_pairs: median {result['ms']:.4f} ms over 20 "
+          f"launches (min {min(times):.4f}, max {max(times):.4f}); bound "
+          f"{result['bound'][0]:.4f} ms by {result['bound'][1]}; plain "
+          f"backward on the card {plain_ms:.1f} ms")
+    return result
 
 
 def check_hash_scatter(dev):
@@ -1016,6 +1108,162 @@ def phase_spatial(dev, kernels):
     return dict(kernels.LAUNCHES)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(dev, kernels):
+    """The sharded TetGS step (views over `data`, tile rows over `tile`) as
+    a one-rank NCCL world, at the fit phase's width: the 81,920-face
+    icosphere (122,880 Gaussians), 8 ring views at 512². Its first step is
+    held against the single-device render (K1f + K1b), 2 and 4 bands
+    rendered in this process against the unsharded image and gradients,
+    then SHARDED_STEPS steps are timed and their launches counted."""
+    import os
+
+    import torch.distributed as dist
+
+    from youreditableavatar_tpu_torch.models.cameras import sample_ring_cameras
+    from youreditableavatar_tpu_torch.models.optimizer import (
+        OptimizationParams, make_tetgs_optimizer)
+    from youreditableavatar_tpu_torch.models.tetgs import (
+        TetGSParams, build_tetgs, gaussian_arrays)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        RasterizeConfig, count_pairs, fit_pair_budget, render_gaussians)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.composite_xla import (
+        assemble_image)
+    from youreditableavatar_tpu_torch.ops.image_losses import l1_dssim
+    from youreditableavatar_tpu_torch.ops.sh import rgb_to_sh_dc
+    from youreditableavatar_tpu_torch.parallel import (
+        distributed_init, make_mesh, make_sharded_render_train_step)
+    from youreditableavatar_tpu_torch.parallel.train_step import render_band
+    from youreditableavatar_tpu_torch.utils.misc import assert_replicated
+
+    for key, value in (("MASTER_ADDR", "localhost"),
+                       ("MASTER_PORT", str(_free_port())), ("RANK", "0"),
+                       ("WORLD_SIZE", "1")):
+        os.environ.setdefault(key, value)
+    rank, world = distributed_init(device=dev)
+    try:
+        mesh = make_mesh((1, 1), device=dev)
+        print(f"  process group: rank {rank} of {world}, backend "
+              f"{dist.get_backend()}, mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}")
+        if dist.get_backend() != "nccl":
+            raise AssertionError("the sharded step on the card must run on NCCL")
+
+        verts, faces = icosphere(FIT_SUBDIV)
+        binding, params = build_tetgs(verts, faces, sh_levels=2, device=dev)
+        cams = [c.raster_camera(dev) for c in sample_ring_cameras(
+            radius=2.7, elevations=(10.0,), counts=(FIT_VIEWS,), height=HEIGHT,
+            width=WIDTH)]
+        bg = torch.zeros(3, device=dev)
+        with torch.no_grad():  # targets: the colour-pattern copy's renders
+            target = TetGSParams(**{k: v.detach().clone()
+                                    for k, v in params.named_parameters()})
+            target.sh_dc.copy_(rgb_to_sh_dc(torch.as_tensor(
+                pattern_colors(binding.ori_points.cpu().numpy()),
+                dtype=torch.float32, device=dev))[:, None, :])
+            g = gaussian_arrays(binding, target)
+            cfg = RasterizeConfig(sh_degree=1)
+            need = max(int(count_pairs(*g, c, cfg)) for c in cams)
+            cfg = dataclasses.replace(cfg, pair_budget=fit_pair_budget(need))
+            images = torch.stack([
+                render_gaussians(*g, c, cfg, torch.ones(3, device=dev))["image"]
+                .clamp(0, 1) for c in cams])
+        batch = {"viewmats": torch.stack([c.viewmat for c in cams]),
+                 **{k: torch.stack([getattr(c, k) for c in cams])
+                    for k in ("fx", "fy", "cx", "cy")},
+                 "images": images}
+        start = TetGSParams(**{k: v.detach().clone()
+                               for k, v in params.named_parameters()})
+        opt = make_tetgs_optimizer(params, OptimizationParams(), 1.0)
+        step = make_sharded_render_train_step(binding, opt, cfg, mesh, HEIGHT,
+                                              WIDTH, bg=bg)
+
+        # 1. The first step against the single-device render and loss.
+        params, opt, loss, overflow = step(params, batch)
+        grads = [p.grad.detach().clone() for p in params.parameters()]
+        arrays = gaussian_arrays(binding, start)
+        ref = torch.stack([l1_dssim(render_gaussians(*arrays, c, cfg, bg)["image"],
+                                    images[i], 0.2)
+                           for i, c in enumerate(cams)]).mean()
+        ref.backward()
+        ratios = [float((a - b.grad).abs().max())
+                  / (GRAD_RTOL_OF_MAX * max(float(b.grad.abs().max()), 1e-12))
+                  for a, b in zip(grads, start.parameters())]
+        ref = ref.detach()
+        rel = abs(float(loss) - float(ref)) / abs(float(ref))
+        print(f"  {binding.n_gaussians} Gaussians, {len(cams)} views at "
+              f"{WIDTH}², pair budget {cfg.pair_budget} per band (the most a "
+              f"view needs: {need}); first step loss {float(loss):.6f} vs "
+              f"single-device {float(ref):.6f} (relative {rel:.2e}); gradient "
+              f"errors per leaf as fractions of {GRAD_RTOL_OF_MAX}·max|g|: "
+              + ", ".join(f"{r:.3f}" for r in ratios)
+              + f"; tiles over capacity {int(overflow)}")
+        if not (rel <= 1e-5 and max(ratios) <= 1.0):
+            raise AssertionError("the sharded step differs from the single-device step")
+
+        # 2. 2 and 4 bands of one view in this process against the render.
+        leaves = [x.detach().requires_grad_() for x in arrays]
+        out = render_gaussians(*leaves, cams[0], cfg, bg)["image"]
+        want = torch.autograd.grad(l1_dssim(out, images[0], 0.2), leaves)
+        for n_bands in SHARDED_BANDS:
+            parts = [render_band(*leaves, cams[0], cfg, b, n_bands)
+                     for b in range(n_bands)]
+            ntiles = WIDTH // cfg.tile_size
+            img, t_img = assemble_image(torch.cat([q[0] for q in parts]),
+                                        torch.cat([q[1] for q in parts]),
+                                        ntiles, ntiles, cfg.tile_size, WIDTH,
+                                        HEIGHT)
+            img = img + t_img[..., None] * bg
+            got = torch.autograd.grad(l1_dssim(img, images[0], 0.2), leaves)
+            img_err = float((img - out).detach().abs().max())
+            band_ratios = [float((a - b).abs().max())
+                           / (GRAD_RTOL_OF_MAX * max(float(b.abs().max()), 1e-12))
+                           for a, b in zip(got, want)]
+            print(f"  {n_bands} bands of view 0: image |bands - unsharded| = "
+                  f"{img_err:.3g} (atol {FWD_ATOL}); input-gradient errors as "
+                  f"fractions of their tolerance: "
+                  + ", ".join(f"{r:.3f}" for r in band_ratios))
+            if not (img_err <= FWD_ATOL and max(band_ratios) <= 1.0):
+                raise AssertionError(f"{n_bands} bands differ from the render")
+
+        # 3. The main path: SHARDED_STEPS synchronised steps, counted.
+        kernels.reset_launches()
+        losses, times = [], []
+        for _ in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, loss, overflow = step(params, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        launches = dict(kernels.LAUNCHES)
+        per_step = {k: launches[k] / SHARDED_STEPS for k in SHARDED_KERNELS}
+        median = statistics.median(times)
+        first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+        print(f"  {SHARDED_STEPS} steps: median {median:.3f} ms (min "
+              f"{min(times):.3f}, max {max(times):.3f}); loss {losses[0]:.6f} → "
+              f"{losses[-1]:.6f} (means of first and last 5: {first:.6f} → "
+              f"{last:.6f}); launches per step {json.dumps(per_step)}")
+        if not (np.all(np.isfinite(losses)) and last < first):
+            raise AssertionError("the sharded step's loss did not fall")
+        if any(per_step[k] != len(cams) for k in SHARDED_KERNELS):
+            raise AssertionError("a kernel of the sharded step did not launch "
+                                 "once per view and step")
+        if launches["composite_backward"] != 0:
+            raise AssertionError("the sharded step went through the fused backward")
+        assert_replicated(params)
+        profile_window(lambda: step(params, batch), iters=3, step_ms=median)
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
 SOURCES = {
     "tile_histogram": ("youreditableavatar_tpu_torch/csrc/counting.cu",
                        "youreditableavatar_tpu/ops/gaussian_raster/counting.py:89"),
@@ -1027,6 +1275,9 @@ SOURCES = {
                           "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:510"),
     "composite_backward": ("youreditableavatar_tpu_torch/csrc/composite.cu",
                            "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:867"),
+    "composite_backward_pairs": (
+        "youreditableavatar_tpu_torch/csrc/composite.cu",
+        "youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py:545"),
     "mesh_resolve": ("youreditableavatar_tpu_torch/csrc/mesh_resolve.cu",
                      "youreditableavatar_tpu/ops/mesh_raster/raster.py:385"),
     "hash_scatter": ("youreditableavatar_tpu_torch/csrc/hash_scatter.cu",
@@ -1084,6 +1335,7 @@ def main() -> int:
         "fit": lambda: phase_fit(dev, _kernels),
         "edit": lambda: phase_edit(dev, _kernels),
         "spatial": lambda: phase_spatial(dev, _kernels),
+        "sharded": lambda: phase_sharded(dev, _kernels),
     }
     results = {name: run_phase(name, fn, failures)
                for name, fn in phases.items()}
@@ -1091,7 +1343,8 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
     # Each kernel's launches come from the run of its own main path.
-    main_path = {"mesh_resolve": "edit", "hash_scatter": "spatial"}
+    main_path = {"mesh_resolve": "edit", "hash_scatter": "spatial",
+                 "composite_backward_pairs": "sharded"}
 
     kernels = []
     for name in _kernels.KERNEL_NAMES:

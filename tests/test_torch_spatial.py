@@ -508,11 +508,6 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="next slice"):
         tsp.HumanEditTrainer(tg.field, tg, tpart, tp, guidance, tpp, None,
                              tsp.HumanEditConfig(use_sds=False), device="cpu")
-    trainer = tsp.HumanEditTrainer(tg.field, tg, tpart, tp, guidance, tpp, None,
-                                   device="cpu")
-    for fn in (trainer.save_checkpoint, trainer.restore_checkpoint):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            fn(str(tmp_path / "ckpt"))
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-card default")

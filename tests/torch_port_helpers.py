@@ -6,6 +6,8 @@ package and the port, which runs on the CPU through its plain versions.
 
 from __future__ import annotations
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -190,3 +192,128 @@ def assert_mesh_close(tm, jm, atol=1e-6, err=""):
                                        err_msg=f"{err} {name}")
         else:
             np.testing.assert_array_equal(b, a, err_msg=f"{err} {name}")
+
+
+# ---- spawned worlds of ranks (gloo) --------------------------------------
+
+WORLD_TIMEOUT_S = 240  # a hung collective fails the test instead of the run
+
+
+def _rank_main(target, rank, world, store, out_dir, args):
+    """One spawned rank: join the gloo group through the file store, run
+    `target(rank, world, *args)`, pickle its result (or the traceback)."""
+    import pickle
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from youreditableavatar_tpu_torch.parallel import distributed_init
+
+    torch.set_num_threads(1)
+    out = pathlib.Path(out_dir)
+    try:
+        distributed_init(f"file://{store}", world, rank, device="cpu",
+                         timeout=timedelta(seconds=60))
+        result = target(rank, world, *args)
+        (out / f"rank{rank}.pkl").write_bytes(pickle.dumps(result))
+    except BaseException:
+        (out / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_world(target, world, tmp_path, *args, timeout=WORLD_TIMEOUT_S):
+    """Run `target(rank, world, *args)` (a module-level function) on `world`
+    spawned CPU processes joined by gloo; returns the ranks' results. A rank
+    that fails or a world that outlives `timeout` fails the caller."""
+    import multiprocessing as mp
+    import pickle
+    import time
+
+    out = pathlib.Path(tmp_path) / f"world{world}_{target.__name__}"
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, r, world, str(out / "store"), str(out),
+                               args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = "".join((out / f"rank{r}.err").read_text()
+                     for r in range(world) if (out / f"rank{r}.err").exists())
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"ranks {hung} hung after {timeout} s; exit codes "
+                             f"{[p.exitcode for p in procs]}\n{errors}")
+    return [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def sharded_step_worker(rank, world, axis_sizes, scene_path, steps):
+    """Rank body of the sharded-step tests: the scene from `scene_path`
+    (numpy), the port's sharded step `steps` times on a gloo (data, tile)
+    mesh. Returns the first step's loss, overflow and all-reduced
+    gradients, the parameters after it, every step's loss, and the mesh."""
+    from youreditableavatar_tpu_torch.models.optimizer import (
+        OptimizationParams, make_tetgs_optimizer)
+    from youreditableavatar_tpu_torch.models.tetgs import (
+        PARAM_NAMES, binding_from_numpy, params_from_numpy)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import RasterizeConfig
+    from youreditableavatar_tpu_torch.parallel import (
+        make_mesh, make_sharded_render_train_step)
+    from youreditableavatar_tpu_torch.utils.misc import assert_replicated
+
+    z = dict(np.load(scene_path))
+    binding = binding_from_numpy(z, device="cpu")
+    params = params_from_numpy(z, device="cpu")
+    opt = make_tetgs_optimizer(params, OptimizationParams(), 1.0)
+    mesh = make_mesh(axis_sizes, device="cpu")
+    cfg = RasterizeConfig(pair_budget=int(z["pair_budget"]),
+                          tile_capacity=int(z["tile_capacity"]), sh_degree=1)
+    h, w = z["images"].shape[1:3]
+    step = make_sharded_render_train_step(binding, opt, cfg, mesh, h, w,
+                                          bg=torch.zeros(3))
+    batch = {k: z[k] for k in ("viewmats", "fx", "fy", "cx", "cy", "images")}
+    out = {"losses": []}
+    for i in range(steps):
+        params, opt, loss, overflow = step(params, batch)
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["overflow"] = int(overflow)
+            out["grads"] = {n: getattr(params, n).grad.numpy().copy()
+                            for n in PARAM_NAMES}
+            out["params"] = {n: getattr(params, n).detach().numpy().copy()
+                             for n in PARAM_NAMES}
+    assert_replicated(params)
+    out["mesh"] = (mesh.mesh.tolist(), mesh.mesh_dim_names,
+                   mesh.get_local_rank("data"), mesh.get_local_rank("tile"))
+    inferred = make_mesh((axis_sizes[0], -1), device="cpu")
+    out["inferred_shape"] = tuple(inferred.mesh.shape)
+    return out
+
+
+def replication_worker(rank, world, perturb_rank):
+    """Rank body: equal tensors pass `assert_replicated`; then rank
+    `perturb_rank` changes one value by 1e-6 and every rank must raise."""
+    from youreditableavatar_tpu_torch.utils.misc import assert_replicated
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"a": torch.randn(5, 3, generator=g), "b": [torch.randn(7, generator=g)]}
+    assert_replicated(tree)
+    if rank == perturb_rank:
+        tree["b"][0][3] += 1e-6
+    try:
+        assert_replicated(tree)
+    except AssertionError as err:
+        return str(err)
+    return None

@@ -23,14 +23,16 @@ Sub-packages:
                       prompt_library, sd_layers (conv2d)
   native/             MeshSDF (the C++ BVH signed distance, built with g++)
   ops/gaussian_raster the Gaussian-splat render (kernels K1f, K1b, K2, K3a,
-                      K3b)
+                      K3b) and the per-pair compositing backward (K6)
   ops/mesh_raster     the mesh visibility rasterizer (kernel K5) and the
                       differentiable interpolation over it
   ops/hashgrid        the hash-grid encoding; its table gradient is kernel
                       K4 (ops/hashgrid_cuda)
   ops/                covariance, image_losses, knn, marching_tets,
                       morphology, quaternion, segments, sh
-  utils/              config, device, graphics, optim, registry, saving,
-                      schedule
+  parallel/           distributed_init, make_mesh (torch.distributed +
+                      DeviceMesh) and the sharded TetGS train step
+  utils/              checkpoint, config, device, graphics, misc, optim,
+                      profiling, registry, saving, schedule
   csrc/, _kernels.py  the CUDA sources and their loader
 """

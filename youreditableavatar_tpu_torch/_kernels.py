@@ -47,6 +47,7 @@ KERNEL_NAMES = (
     "expand_pairs",
     "composite_forward",
     "composite_backward",
+    "composite_backward_pairs",
     "mesh_resolve",
     "hash_scatter",
 )
@@ -60,8 +61,11 @@ _SIGNATURES = {
     "yea_counting_layout": [_P, _P, _P, _P, _I, _I, _P],
     "yea_expand_pairs": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "yea_composite_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "yea_composite_forward_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _P],
+    "yea_composite_backward_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
     "yea_hash_scatter_vector_atomics": [],

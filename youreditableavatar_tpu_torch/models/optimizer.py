@@ -79,6 +79,13 @@ class TetGSOptimizer:
         self.adam.step()
         self.count += 1
 
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
+
 
 def make_tetgs_optimizer(
     params: TetGSParams,

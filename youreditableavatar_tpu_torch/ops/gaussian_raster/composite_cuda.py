@@ -1,29 +1,36 @@
-"""Tile compositing, forward + analytic backward (K1f / K1b).
+"""Tile compositing, forward + analytic backward (K1f / K1b / K6).
 
-Counterpart of `composite_tiles_pallas_fused` in
-`youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py`: the
-(P_pad,) padded pair layout indexes per-Gaussian field rows
-`fields_ext (N+1, 16)` (row 0 all zeros, column 9 the row id), and the
-gradient comes back per Gaussian, as the `fields_ext` cotangent.
+Counterpart of `composite_tiles_pallas_fused` and `composite_tiles_pallas`
+in `youreditableavatar_tpu/ops/gaussian_raster/composite_pallas.py`.
+
+`composite_tiles_fused`: the (P_pad,) padded pair layout indexes
+per-Gaussian field rows `fields_ext (N+1, 16)` (row 0 all zeros, column 9
+the row id), and the gradient comes back per Gaussian, as the `fields_ext`
+cotangent. `composite_tiles`: the caller has gathered the (P_pad, 16) pair
+rows itself (padding rows zero), and the gradient comes back per pair, one
+row per slot; the caller's gather sums it onto the Gaussians.
 
 On the card (`csrc/composite.cu`):
   forward  — one CTA per 32×32 tile, 256 threads × 4 pixels; the tile's
              depth-ordered pair range is staged 128 pairs at a time into
              shared memory, each staged row read as
-             `fields_ext[pg_padded[slot]]` inside the kernel; the tile stops
-             once every pixel is done (`__syncthreads_or`).
+             `fields_ext[pg_padded[slot]]` (fused) or `pair_rows[slot]`
+             inside the kernel; the tile stops once every pixel is done
+             (`__syncthreads_or`).
   backward — a second forward-order sweep: with the saved colour C and
              final T, the suffix the CUDA reference accumulates back to
              front is S = C − prefix. Per pair, 9 pixel sums (warp shuffles,
-             then shared memory across warps) go into the zero-initialised
-             (N+1, 16) table by one atomicAdd per field. Float atomics sum in
-             no fixed order: kernel gradients hold to a tolerance, not bits.
-  Both call one `__device__` function for the α / contrib / trigger
+             then shared memory across warps). K1b adds them into the
+             zero-initialised (N+1, 16) table by one atomicAdd per field, in
+             no fixed order: its gradients hold to a tolerance, not bits. K6
+             writes them as the pair's own (16,) row: no atomics, and the
+             same bits on every launch.
+  All call one `__device__` function for the α / contrib / trigger
   decisions, so they agree bit for bit on which pairs count.
 
-The plain PyTorch version is a scan over the padded layout — one pair slot
-of every tile per step, checkpointed every `chunk` steps so that its
-autograd gradient keeps only the per-chunk carries. CPU tensors go to it.
+The plain PyTorch versions are a scan over the padded layout — one pair
+slot of every tile per step, checkpointed every `chunk` steps so that its
+autograd gradient keeps only the per-chunk carries. CPU tensors go to them.
 """
 
 from __future__ import annotations
@@ -207,3 +214,93 @@ def composite_tiles_fused(
         raise ValueError("starts must hold one entry per tile")
     return _CompositeFused.apply(fields_ext, pg_padded, starts, counts,
                                  num_tiles_x)
+
+
+def composite_tiles_pairs_plain(
+    pair_rows: Tensor, starts: Tensor, counts: Tensor, num_tiles_x: int,
+    num_tiles_y: int, tile_size: int = 32, chunk: int = 32,
+    return_evals: bool = False,
+):
+    """Plain PyTorch version of `composite_tiles`: the same scan over the
+    gathered rows themselves; autograd gives the per-pair gradient."""
+    slots = torch.arange(pair_rows.shape[0], dtype=torch.int32,
+                         device=pair_rows.device)
+    return composite_tiles_plain(pair_rows, slots, starts, counts, num_tiles_x,
+                                 num_tiles_y, tile_size, chunk, return_evals)
+
+
+def _forward_rows(pair_rows, starts, counts, ntx):
+    num_t = starts.shape[0]
+    dev = pair_rows.device
+    pix = TILE_SIZE * TILE_SIZE
+    rgb = torch.empty((num_t, 3, pix), dtype=torch.float32, device=dev)
+    final_t = torch.empty((num_t, pix), dtype=torch.float32, device=dev)
+    cnt = torch.empty((num_t, pix), dtype=torch.int32, device=dev)
+    _kernels.launch(
+        "composite_forward", "yea_composite_forward_rows", dev,
+        pair_rows.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+        rgb.data_ptr(), final_t.data_ptr(), cnt.data_ptr(), num_t, ntx,
+        pair_rows.shape[0])
+    return rgb, final_t, cnt
+
+
+def backward_pairs(pair_rows, starts, counts, rgb, final_t, drgb, dt, ntx):
+    """K6: the (P_pad, 16) per-pair gradient rows — columns 0-1 d mean, 2-4
+    d conic, 5 d opacity, 6-8 d colour, 9-15 zero; padding slots zero."""
+    drows = torch.zeros_like(pair_rows)
+    _kernels.launch(
+        "composite_backward_pairs", "yea_composite_backward_pairs",
+        pair_rows.device, pair_rows.data_ptr(), starts.data_ptr(),
+        counts.data_ptr(), rgb.data_ptr(), final_t.data_ptr(),
+        drgb.data_ptr(), dt.data_ptr(), drows.data_ptr(), starts.shape[0],
+        ntx, pair_rows.shape[0])
+    return drows
+
+
+class _CompositePairs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pair_rows, starts, counts, ntx):
+        rgb, final_t, cnt = _forward_rows(pair_rows, starts, counts, ntx)
+        ctx.save_for_backward(pair_rows, starts, counts, rgb, final_t)
+        ctx.ntx = ntx
+        ctx.mark_non_differentiable(cnt)
+        return rgb, final_t, cnt
+
+    @staticmethod
+    def backward(ctx, drgb, dt, _dcnt):
+        pair_rows, starts, counts, rgb, final_t = ctx.saved_tensors
+        drows = backward_pairs(pair_rows, starts, counts, rgb, final_t,
+                               drgb.contiguous(), dt.contiguous(), ctx.ntx)
+        return drows, None, None, None
+
+
+def composite_tiles(
+    pair_rows: Tensor, starts: Tensor, counts: Tensor, num_tiles_x: int,
+    num_tiles_y: int, tile_size: int = 32, chunk: int = 32,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Composite every tile over gathered pair rows; differentiable in
+    `pair_rows`.
+
+    Args:
+      pair_rows: (P_pad, 16) f32 rows (mean x/y, conic a/b/c, opacity,
+        r/g/b, …) in depth order, each tile's range chunk-aligned; padding
+        rows must be zero (inert: alpha 0).
+      starts / counts: (T,) int32 chunk-aligned start and true pair count.
+    Returns:
+      rgb (T, 3, 1024), final_t (T, 1024), n_contrib (T, 1024) int32.
+    The gradient is one (16,) row per slot, zero on padding slots and in
+    columns 9-15. `chunk` is the plain version's checkpoint interval.
+    """
+    _check_tile_size(tile_size)
+    if not pair_rows.is_cuda:
+        return composite_tiles_pairs_plain(pair_rows, starts, counts,
+                                           num_tiles_x, num_tiles_y,
+                                           tile_size, chunk)
+    _kernels.check_cuda("pair_rows", pair_rows, torch.float32, 2)
+    if pair_rows.shape[1] != NUM_FIELDS:
+        raise ValueError(f"pair_rows must have {NUM_FIELDS} columns")
+    for name, t in (("starts", starts), ("counts", counts)):
+        _kernels.check_cuda(name, t, torch.int32, 1)
+    if starts.shape[0] != num_tiles_x * num_tiles_y:
+        raise ValueError("starts must hold one entry per tile")
+    return _CompositePairs.apply(pair_rows, starts, counts, num_tiles_x)

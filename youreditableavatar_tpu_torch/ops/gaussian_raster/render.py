@@ -24,6 +24,7 @@ from torch import Tensor
 
 from youreditableavatar_tpu_torch.ops.gaussian_raster.binning import (
     pack_depth_ordered,
+    pad_tile_ranges,
 )
 from youreditableavatar_tpu_torch.ops.gaussian_raster.composite_cuda import (
     CHUNK,
@@ -86,12 +87,49 @@ def build_pair_layout_counting(proj, ntx: int, nty: int, pair_budget: int,
                                                  tile_size)
         dst, astart, tile_count = counting_layout(tile, ntx * nty, CHUNK,
                                                   padded_size)
-        # One slot past the end collects the culled pairs (mode="drop").
-        pg_padded = torch.zeros(padded_size + 1, dtype=torch.int32,
-                                device=tile.device)
-        pg_padded[torch.clamp(dst, max=padded_size).long()] = gauss + 1
-        pg_padded = pg_padded[:padded_size]
+        pg_padded = _slot_ids(dst, gauss, padded_size)
     return _build_fields_ext(proj), pg_padded, astart, tile_count, total
+
+
+def _slot_ids(dst: Tensor, gauss: Tensor, padded_size: int) -> Tensor:
+    """(padded_size,) int32 gaussian+1 at each pair's slot, 0 elsewhere;
+    destinations ≥ padded_size (culled or past the total) are dropped."""
+    # One slot past the end collects them (JAX's mode="drop").
+    ids = torch.zeros(padded_size + 1, dtype=torch.int32, device=dst.device)
+    ids[torch.clamp(dst, max=padded_size).long()] = gauss + 1
+    return ids[:padded_size]
+
+
+def build_pallas_pair_layout(proj, binning, ntx: int, nty: int,
+                             pair_budget: int):
+    """(fields_ext (N+1, 16), pg_padded (P_pad,), aligned_starts (T,)) from
+    a sort-path `TileBinning`: the layout `build_pair_layout_counting`
+    reproduces bit for bit without the sort."""
+    padded_size = pair_budget + ntx * nty * CHUNK
+    with torch.no_grad():
+        dst, astart, _total = pad_tile_ranges(binning, CHUNK, padded_size)
+        pg_padded = _slot_ids(dst, binning.pair_gauss, padded_size)
+    return _build_fields_ext(proj), pg_padded, astart
+
+
+def gather_pair_rows(fields_ext: Tensor, pg_padded: Tensor) -> Tensor:
+    """(P_pad, 16) pair rows `fields_ext[pg_padded]`, padding slots row 0.
+
+    `index_select`, not indexing: every padding slot points at row 0, and
+    autograd of `x[idx]` is PyTorch's sort-based index backward, which
+    walks each run of equal indices serially; `index_select`'s backward is
+    `index_add_` (atomics on the card)."""
+    return fields_ext.index_select(0, pg_padded)
+
+
+def build_pallas_pair_rows(proj, binning, ntx: int, nty: int, pair_budget: int):
+    """Chunk-aligned pair rows + aligned starts for `composite_tiles`.
+
+    Returns (pair_rows (P_pad, NUM_FIELDS), aligned_starts (T,)); the
+    gradient of the rows flows back to `proj` through one gather."""
+    fields_ext, pg_padded, astart = build_pallas_pair_layout(
+        proj, binning, ntx, nty, pair_budget)
+    return gather_pair_rows(fields_ext, pg_padded), astart
 
 
 def render_gaussians_checked(

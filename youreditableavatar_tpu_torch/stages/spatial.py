@@ -22,9 +22,11 @@ PRNG key comes from one method that returns it as a tensor:
 indices), from a `torch.Generator` seeded by (seed, phase, step). Camera
 and host-side draws are numpy, as in the JAX package.
 
-Not ported yet, each raising `NotImplementedError`: the "du" edit mode
-(`HumanEditConfig.use_sds=False`) and the trainer checkpoints
-(`save_checkpoint` / `restore_checkpoint`, which need `utils/checkpoint.py`).
+`HumanEditTrainer.save_checkpoint` / `restore_checkpoint` resume a run
+mid-curriculum: a resumed run makes the steps an uninterrupted one makes.
+
+Not ported yet, raising `NotImplementedError`: the "du" edit mode
+(`HumanEditConfig.use_sds=False`).
 """
 
 from __future__ import annotations
@@ -589,12 +591,63 @@ class HumanEditTrainer:
         return rec
 
     def save_checkpoint(self, path: str) -> None:
-        """Full resumable training state — needs `utils/checkpoint.py`."""
-        raise NotImplementedError(f"trainer checkpoints are {_NEXT_SLICE}")
+        """Full resumable training state: params, the optimizer's state, the
+        step, and the control-SDF snapshot and selection cache where they
+        exist (one `torch.save` file, `utils.checkpoint.save_state`)."""
+        from youreditableavatar_tpu_torch.utils.checkpoint import save_state
+
+        extra = {}
+        if self.control_sdf is not None:
+            extra["control_sdf"] = self.control_sdf
+        if self._sdf_cache is not None:
+            # The carried selection cache: a restored run then makes exactly
+            # the tet selections an uninterrupted one makes.
+            extra["sdf_cache"] = self._sdf_cache
+        save_state(path, self.params, self.optimizer, step=self.global_step,
+                   extra=extra or None)
 
     def restore_checkpoint(self, path: str) -> None:
-        """Resume mid-curriculum — needs `utils/checkpoint.py`."""
-        raise NotImplementedError(f"trainer checkpoints are {_NEXT_SLICE}")
+        """Resume mid-curriculum with step-replay semantics.
+
+        Restores params (in place, so the optimizer keeps them), the
+        optimizer's state and the step, and re-derives every piece of
+        step-dependent state, as the reference's `do_update_step(epoch,
+        step, on_load_weights=True)` replay does:
+
+          * the progressive hash-grid level count — a function of
+            `global_step`, read at every step;
+          * all `C()` schedules and the timestep range — functions of step;
+          * every draw — from generators seeded by (seed, step) (`draws`,
+            and the per-step host streams of `train_step`), so no generator
+            state needs restoring;
+          * the control-SDF snapshot — restored if it was taken, else
+            (resuming before `start_sdf_loss_step`) taken at the boundary as
+            in an uninterrupted run;
+          * the selection cache — restored, or rebuilt from the live field
+            for a checkpoint without one.
+        """
+        from youreditableavatar_tpu_torch.utils.checkpoint import load_state
+
+        state = load_state(path, map_location=self.device)
+        with torch.no_grad():
+            self.params.load_state_dict(state["params"])
+        if "opt_state" in state:
+            self.optimizer.load_state_dict(state["opt_state"])
+        self.global_step = int(state["step"])
+        extra = state.get("extra") or {}
+        self.control_sdf = extra.get("control_sdf")
+        if self.cfg.sdf_cache_refresh > 0:
+            cache = extra.get("sdf_cache")
+            if cache is None:
+                live = self.partition.live_vert_idx
+                with torch.no_grad():
+                    vals = self.field.forward_sdf_chunked(
+                        self.params, self.geometry.grid_pos[live],
+                        level_mask=self.field.level_mask(self.global_step,
+                                                         self.device))
+                cache = self.partition.frozen_sdf.clone()
+                cache[live] = vals
+            self._sdf_cache = cache
 
     def train(self, seed: int = 0, num_steps: Optional[int] = None) -> SDFParams:
         n = num_steps or self.cfg.max_steps
