@@ -6,13 +6,16 @@
 Phases (each prints its line and seconds; any failure exits non-zero and
 prints no result):
   1. device  — the card, its power limit; TF32 off for matmul and cuDNN.
-  2. build   — nvcc builds every kernel under youreditableavatar_tpu_torch/csrc.
+  2. build   — nvcc builds every kernel under youreditableavatar_tpu_torch/csrc
+               (ptxas's registers / shared memory of the compositing kernels).
   3. kernels — every kernel against its plain PyTorch version on the card:
                pair expansion, tile histogram and counting ranks bit-exact,
-               compositing forward and its gradient at full width, the
+               compositing forward (and its per-batch checkpoints) and its
+               gradient at full width with the tile-depth line, the
                per-pair compositing backward (K6) over the same layout's
                gathered rows (two launches bit-identical; the gather and
-               its backward timed apart), the render's input gradients at
+               its backward timed apart), K1b and K6 on an adversarial
+               layout built against their cull, the render's input gradients at
                256² (20k Gaussians) against the plain render on the CPU,
                the mesh z-buffer resolve bit-exact at 512² on the
                81,920-face icosphere, plus each kernel's time, its plain
@@ -192,6 +195,19 @@ def each_device_ms(fn, iters, warmup=3):
     return out
 
 
+def both_ms(fn, iters=20):
+    """(mean of `iters` back-to-back calls, the `iters` calls timed one by
+    one): the compositing kernels' rows keep the statistic of their earlier
+    rows, and the other is printed beside it."""
+    return device_ms(fn, iters), each_device_ms(fn, iters)
+
+
+def spread(mean, times):
+    return (f"mean {mean:.4f} ms back to back; one by one median "
+            f"{statistics.median(times):.4f} (min {min(times):.4f}, max "
+            f"{max(times):.4f})")
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -305,16 +321,44 @@ def phase_kernels(dev, report):
               f"n_contrib mismatches {mism} of {ck.numel()}")
         if not err <= FWD_ATOL:
             raise AssertionError("composite forward kernel differs")
+        # K1f saving the backward's checkpoints (the main path: a gradient
+        # follows): the same outputs bit for bit, and checkpoints and swept
+        # counts equal to the plain version's.
+        rs, fs, cs, ckpt = comp._forward(fields, pg, astart, tcount, ntx,
+                                         True)
+        if not (torch.equal(rs, rk) and torch.equal(fs, fk)
+                and torch.equal(cs, ck)):
+            raise AssertionError("K1f with the checkpoint store differs")
+        ck_plain = comp.composite_tiles_plain(
+            fields, pg, astart, tcount, ntx, nty, return_checkpoints=True)[3]
+        check_checkpoints(ckpt, ck_plain, astart, "512²/100k vs plain")
+        layout_stats(fields, pg, astart, tcount, ck_plain, cp, evals, ntx, nty)
+        # The compositing bounds count what this layout needs: the
+        # arithmetic of the contributing (pair, pixel) evaluations only, and
+        # the checkpoints of the swept batches (written by K1f on the main
+        # path, read by K1b / K6) besides the rows and image planes.
+        contrib = int(cp.sum())
+        ckpt_bytes = int(ckpt.swept.sum()) * 5 * 1024 * 4 + num_t * 4
         fwd_bytes = (fields.numel() * 4 + pg.numel() * 4 + 2 * num_t * 4
-                     + num_t * 5 * 1024 * 4)
+                     + num_t * 5 * 1024 * 4 + ckpt_bytes)
+        fwd_mean, fwd_times = both_ms(lambda: comp._forward(
+            fields, pg, astart, tcount, ntx, True))
+        nostore_mean, nostore_times = both_ms(lambda: comp._forward(
+            fields, pg, astart, tcount, ntx, False))
+        print(f"  composite_forward with the checkpoint store: "
+              f"{spread(fwd_mean, fwd_times)}; without: "
+              f"{spread(nostore_mean, nostore_times)}")
         report["composite_forward"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda: comp.composite_tiles_fused(
-                fields, pg, astart, tcount, ntx, nty), 20),
+            max_abs_err=err, ms=fwd_mean,
             plain_ms=device_ms(lambda: comp.composite_tiles_plain(
                 fields, pg, astart, tcount, ntx, nty), 2, warmup=1),
-            bound=bound(fwd_bytes, FWD_OPS_PER_EVAL * evals),
+            bound=bound(fwd_bytes, FWD_OPS_PER_EVAL * contrib),
         )
+        print(f"  compositing bounds over {contrib} contributing evaluations "
+              f"(over all {evals} live ones they would be K1f "
+              f"{FWD_OPS_PER_EVAL * evals / F32_OPS_PER_S * 1e3:.4f} ms, "
+              f"K1b / K6 {BWD_OPS_PER_EVAL * evals / F32_OPS_PER_S * 1e3:.4f} "
+              f"ms); checkpoints of the swept batches {ckpt_bytes} B")
 
     # K1b at full width: the kernel's gradient (through the autograd
     # Function) against autograd of the plain version, same random
@@ -322,8 +366,8 @@ def phase_kernels(dev, report):
     gen = torch.Generator(device=dev).manual_seed(1)
     drgb = torch.randn(rk.shape, generator=gen, device=dev)
     dt = torch.randn(fk.shape, generator=gen, device=dev)
-    bwd_ms = device_ms(lambda: comp._backward_raw(
-        fields, pg, astart, tcount, rk, fk, drgb, dt, ntx), 20)
+    bwd_ms, bwd_times = both_ms(lambda: comp._backward_raw(
+        fields, pg, astart, tcount, rk, fk, drgb, dt, ntx, ckpt))
 
     def composite_grad(fn):
         """fields_ext gradient of fn and the device ms of its backward."""
@@ -349,11 +393,11 @@ def phase_kernels(dev, report):
     print(f"  composite_backward at {WIDTH}² / {N_GAUSS} Gaussians, "
           f"{int(tcount.sum())} pairs kept: max |kernel - plain| = {err:.3g}, "
           f"worst column at {worst:.3f} of its tolerance "
-          f"({GRAD_RTOL_OF_MAX}·max|g|)")
+          f"({GRAD_RTOL_OF_MAX}·max|g|); {spread(bwd_ms, bwd_times)}")
     if not worst <= 1.0:
         raise AssertionError("composite backward kernel differs")
     bwd_bytes = (fields.numel() * 4 * 2 + pg.numel() * 4 + 2 * num_t * 4
-                 + num_t * 8 * 1024 * 4)
+                 + num_t * 8 * 1024 * 4 + ckpt_bytes)
 
     # Render-level gradients of all five inputs at 256² / 20k Gaussians:
     # kernels on the card against the plain versions on the CPU, same inputs.
@@ -385,21 +429,173 @@ def phase_kernels(dev, report):
         raise AssertionError("render on the card differs from the plain render")
     report["composite_backward"] = dict(
         max_abs_err=err, ms=bwd_ms, plain_ms=bwd_plain_ms,
-        bound=bound(bwd_bytes, BWD_OPS_PER_EVAL * evals),
+        bound=bound(bwd_bytes, BWD_OPS_PER_EVAL * contrib),
     )
     report["composite_backward_pairs"] = check_composite_pairs(
-        fields, pg, astart, tcount, ntx, nty, rk, fk, drgb, dt, evals)
+        fields, pg, astart, tcount, ntx, nty, rk, fk, drgb, dt, contrib,
+        ckpt_bytes, ckpt)
+    check_adversarial(dev)
     report["mesh_resolve"] = check_mesh_resolve(dev)
     report["hash_scatter"] = check_hash_scatter(dev)
 
 
+def check_checkpoints(ck, ck_plain, astart, what):
+    """The kernel's checkpoints bit-equal to the reference ones (the plain
+    version's) on every batch a tile swept, and the same swept counts."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+
+    b = comp.swept_batches(ck_plain, astart)[2]
+    same = (torch.equal(ck.swept, ck_plain.swept)
+            and torch.equal(ck.state[b], ck_plain.state[b])
+            and torch.equal(ck.packed[b], ck_plain.packed[b]))
+    print(f"  K1f checkpoints ({what}): {b.numel()} swept batches of "
+          f"{ck.state.shape[0]}; bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"K1f checkpoints differ ({what})")
+
+
+def layout_stats(fields, pg, astart, tcount, ck, n_contrib, evals, ntx, nty):
+    """The tile-depth line: pairs per tile, batches, evaluations, and the
+    (pair, warp) sweeps the backward's box cull leaves."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+
+    c = tcount.double()
+    swept = ck.swept.long()
+    tile, lb, _ = comp.swept_batches(ck, astart)
+    slots = ((astart[tile].long() + lb * comp.CHUNK)[:, None]
+             + torch.arange(comp.CHUNK, device=swept.device))
+    real = (lb * comp.CHUNK)[:, None] + torch.arange(
+        comp.CHUNK, device=swept.device) < tcount[tile].long()[:, None]
+    box = comp.cull_box_plain(fields[pg[slots[real]].long()])
+    tx = (tile % ntx).float()[:, None].expand_as(slots)[real] * 32
+    ty = torch.div(tile, ntx, rounding_mode="floor").float()[
+        :, None].expand_as(slots)[real] * 32
+    hits = 0
+    for w in range(8):
+        x0, y0 = tx + (w % 2) * 16, ty + (w // 2) * 8
+        hits += int((~((box[:, 1] < x0) | (box[:, 0] > x0 + 15)
+                       | (box[:, 3] < y0) | (box[:, 2] > y0 + 7))).sum())
+    print(f"  tile depth: {int(tcount.sum())} pairs over {c.numel()} tiles "
+          f"(max {int(c.max())}, mean {float(c.mean()):.1f}, median "
+          f"{float(c.median()):.0f}, {int((c == 0).sum())} empty); "
+          f"{int(((c + 127) // 128).sum())} batches, {int(swept.sum())} swept "
+          f"(deepest tile {int(swept.max())}); {evals} live (pair, pixel) "
+          f"evaluations, {int(n_contrib.sum())} contributing; "
+          f"{8 * int(real.sum())} (pair, warp) sweeps, {hits} inside the "
+          f"cull box")
+
+
+def adversarial_layout(dev, seed=5, ntx=8, nty=8, n=400):
+    """A compositing layout built to stress the backward's box cull: n
+    Gaussians in every tile of an ntx × nty tile grid (depth order = index
+    order), σ up to 120 px and anisotropic, means on and off the
+    screen, opacities mostly just above 1/255 (boxes barely wider than the
+    1 px pad), some exactly 1/255, some opaque (early exits) and some with
+    an indefinite conic (never culled). Returns (fields_ext (n+1, 16),
+    pg_padded, starts, counts)."""
+    rng = np.random.default_rng(seed)
+    w, h = ntx * 32, nty * 32
+    mean = rng.uniform([-40, -40], [w + 40, h + 40], (n, 2))
+    s1 = np.exp(rng.uniform(np.log(1.0), np.log(120.0), n))
+    s2 = s1 * rng.uniform(0.05, 1.0, n)
+    th = rng.uniform(0, np.pi, n)
+    cos, sin = np.cos(th), np.sin(th)
+    # conic = R diag(1/s1², 1/s2²) Rᵀ
+    i1, i2 = 1 / s1 ** 2, 1 / s2 ** 2
+    ca = cos ** 2 * i1 + sin ** 2 * i2
+    cc = sin ** 2 * i1 + cos ** 2 * i2
+    cb = cos * sin * (i1 - i2)
+    kind = rng.uniform(size=n)
+    faint = np.float32(1 / 255) * (1 + rng.uniform(1e-6, 0.05, n))
+    op = np.where(kind < 0.6, faint, rng.uniform(0.05, 0.99, n))
+    op = np.where((kind >= 0.6) & (kind < 0.7), np.float32(1 / 255), op)
+    op = np.where(kind >= 0.95, 1.0, op)
+    # Indefinite conics, wide enough that exp(power) stays finite on the
+    # screen (the plain version's autograd would give inf · 0 there).
+    indef = rng.uniform(size=n) < 0.03
+    wide = 1 / rng.uniform(60.0, 120.0, (2, n)) ** 2
+    ca, cc = np.where(indef, wide[0], ca), np.where(indef, wide[1], cc)
+    cb = np.where(indef, 1.5 * np.sqrt(ca * cc), cb)
+    fields = np.zeros((n + 1, 16), np.float32)
+    fields[1:, 0:2] = mean
+    fields[1:, 2], fields[1:, 3], fields[1:, 4] = ca, cb, cc
+    fields[1:, 5] = op
+    fields[1:, 6:9] = rng.uniform(0, 1, (n, 3))
+    fields[:, 9] = np.arange(n + 1)
+    per = -(-n // 128) * 128
+    pg = np.zeros(ntx * nty * per, np.int32)
+    for t in range(ntx * nty):
+        pg[t * per: t * per + n] = np.arange(1, n + 1)
+    starts = np.arange(ntx * nty, dtype=np.int32) * per
+    counts = np.full(ntx * nty, n, np.int32)
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in (fields, pg, starts, counts))
+
+
+def check_adversarial(dev):
+    """K1f, its checkpoints, K1b and K6 on `adversarial_layout` against the
+    plain versions: images to FWD_ATOL, checkpoints bit for bit, gradients
+    within GRAD_RTOL_OF_MAX·max|g| per column, K6 zero off real pairs and
+    bit-identical over two launches."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        gather_pair_rows)
+
+    fields, pg, starts, counts = adversarial_layout(dev)
+    ntx = nty = 8
+    with torch.no_grad():
+        rgb, ft, cnt, ck = comp._forward(fields, pg, starts, counts, ntx, True)
+        rp, fp, cp, ck_plain = comp.composite_tiles_plain(
+            fields, pg, starts, counts, ntx, nty, return_checkpoints=True)
+    err = max(float((rgb - rp).abs().max()), float((ft - fp).abs().max()))
+    if not (err <= FWD_ATOL and torch.equal(cnt, cp)):
+        raise AssertionError("K1f differs on the adversarial layout")
+    check_checkpoints(ck, ck_plain, starts, "adversarial vs plain")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    drgb = torch.randn(rgb.shape, generator=gen, device=dev)
+    dt = torch.randn(ft.shape, generator=gen, device=dev)
+
+    def worst_of(gk, gp, cols):
+        return max(float((gk[:, c] - gp[:, c]).abs().max())
+                   / (GRAD_RTOL_OF_MAX * max(float(gp[:, c].abs().max()), 1e-6))
+                   for c in cols)
+
+    grads = []
+    for fn in (comp.composite_tiles_fused, comp.composite_tiles_plain):
+        f = fields.detach().requires_grad_()
+        r, t, _ = fn(f, pg, starts, counts, ntx, nty)
+        grads.append(torch.autograd.grad((r * drgb).sum() + (t * dt).sum(), f)[0])
+    w1b = worst_of(grads[0], grads[1], range(9))
+    rows = gather_pair_rows(fields, pg)
+    k6 = [comp.backward_pairs(rows, starts, counts, rgb, ft, drgb, dt, ntx, ck)
+          for _ in range(2)]
+    r_ = rows.detach().requires_grad_()
+    r, t, _ = comp.composite_tiles_pairs_plain(r_, starts, counts, ntx, nty)
+    gp = torch.autograd.grad((r * drgb).sum() + (t * dt).sum(), r_)[0]
+    real = pg > 0
+    w6 = worst_of(k6[0][real], gp[real], range(9))
+    stray = float(k6[0][~real].abs().max()) + float(k6[0][:, 9:].abs().max())
+    same = torch.equal(k6[0], k6[1])
+    print(f"  adversarial layout ({int(counts.sum())} pairs, "
+          f"{int(ck_plain.swept.sum())} swept batches, {int(cnt.sum())} "
+          f"contributions): forward |kernel - plain| = {err:.3g}; K1b worst "
+          f"column at {w1b:.3f} and K6 at {w6:.3f} of their tolerance; K6 "
+          f"off real pairs {stray}, two launches bit-identical: {same}")
+    if not (w1b <= 1.0 and w6 <= 1.0 and stray == 0.0 and same):
+        raise AssertionError("K1b / K6 differ on the adversarial layout")
+
+
 def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
-                          drgb, dt, evals):
+                          drgb, dt, contrib, ckpt_bytes, ck_indexed):
     """K6 (and K1f over direct rows) at the 512²/100k layout: the rows are
-    gathered as the sharded step gathers them. The forward must equal the
-    indexed K1f bit for bit; K6's rows must match autograd of the plain
-    version within GRAD_RTOL_OF_MAX·max|g| per column on the real pairs, be
-    zero on every other slot, and repeat bit for bit on a second launch."""
+    gathered as the sharded step gathers them. The forward and its
+    checkpoints must equal the indexed K1f's bit for bit; K6's rows must
+    match autograd of the plain version within GRAD_RTOL_OF_MAX·max|g| per
+    column on the real pairs, be zero on every other slot, and repeat bit
+    for bit on a second launch."""
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
         composite_cuda as comp)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
@@ -408,11 +604,12 @@ def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
     rows = gather_pair_rows(fields, pg)
     p_pad, num_t = rows.shape[0], astart.shape[0]
     with torch.no_grad():
-        rk, fk, _ = comp._forward_rows(rows, astart, tcount, ntx)
+        rk, fk, _, ck = comp._forward_rows(rows, astart, tcount, ntx, True)
     if not (torch.equal(rk, rgb) and torch.equal(fk, final_t)):
         raise AssertionError("K1f over direct rows differs from K1f indexed")
-    k1 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx)
-    k2 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx)
+    check_checkpoints(ck, ck_indexed, astart, "over direct rows vs indexed")
+    k1 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx, ck)
+    k2 = comp.backward_pairs(rows, astart, tcount, rk, fk, drgb, dt, ntx, ck)
     r = rows.detach().requires_grad_()
     out = comp.composite_tiles_pairs_plain(r, astart, tcount, ntx, nty)
     torch.cuda.synchronize()
@@ -457,15 +654,14 @@ def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
           f"{gather_ms:.4f} ms, its backward (index_add_) {gather_bwd_ms:.4f} "
           f"ms; fields[pg] backward (sort-based index backward) "
           f"{indexed_bwd_ms:.4f} ms")
-    times = each_device_ms(lambda: comp.backward_pairs(
-        rows, astart, tcount, rk, fk, drgb, dt, ntx), 20)
+    mean, times = both_ms(lambda: comp.backward_pairs(
+        rows, astart, tcount, rk, fk, drgb, dt, ntx, ck))
     moved = (2 * p_pad * rows.shape[1] * 4 + 2 * num_t * 4
-             + num_t * 8 * 1024 * 4)
+             + num_t * 8 * 1024 * 4 + ckpt_bytes)
     result = dict(max_abs_err=err, ms=statistics.median(times),
                   plain_ms=plain_ms,
-                  bound=bound(moved, BWD_OPS_PER_EVAL * evals))
-    print(f"  composite_backward_pairs: median {result['ms']:.4f} ms over 20 "
-          f"launches (min {min(times):.4f}, max {max(times):.4f}); bound "
+                  bound=bound(moved, BWD_OPS_PER_EVAL * contrib))
+    print(f"  composite_backward_pairs: {spread(mean, times)}; bound "
           f"{result['bound'][0]:.4f} ms by {result['bound'][1]}; plain "
           f"backward on the card {plain_ms:.1f} ms")
     return result
@@ -1323,6 +1519,10 @@ def main() -> int:
         _kernels.library()
         print(f"  kernels built and loaded in {time.perf_counter() - t0:.2f} s "
               f"(nvcc {_kernels.BUILD_SECONDS} s)")
+        # ptxas on the compositing kernels: registers, shared memory, spills.
+        for line in _kernels.BUILD_LOGS.get("composite.cu", "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print("  ptxas composite.cu:", line.split("ptxas info")[-1].strip())
 
     report: dict = {}
     run_phase("device", device, failures)

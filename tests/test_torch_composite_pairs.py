@@ -229,7 +229,8 @@ def test_pairs_kernel_matches_plain_on_card(layout, cuda_device):
     gk, gp = out["kernel"][1], out["plain"][1]
     tol = GRAD_RTOL_OF_MAX * gp.abs().amax(0).clamp(min=1e-6)
     assert bool(((gk - gp).abs() <= tol).all())
-    rgb, t, _ = cc._forward_rows(torch.tensor(rows, device=cuda_device), *args, 2)
+    rgb, t, _, ckpt = cc._forward_rows(torch.tensor(rows, device=cuda_device),
+                                       *args, 2, save=True)
     again = [cc.backward_pairs(torch.tensor(rows, device=cuda_device), *args,
-                               rgb, t, drgb, dt, 2) for _ in range(2)]
+                               rgb, t, drgb, dt, 2, ckpt) for _ in range(2)]
     assert torch.equal(again[0], again[1])

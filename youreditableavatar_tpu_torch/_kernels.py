@@ -32,11 +32,12 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 # Per-source flags. The expansion cull, the compositing α decisions and the
 # z-buffer's inside/depth tests must repeat the plain PyTorch versions' f32
-# arithmetic op for op: no FMA contraction there.
+# arithmetic op for op: no FMA contraction there. ptxas reports the
+# compositing kernels' registers, shared memory and spills (`BUILD_LOGS`).
 SOURCE_FLAGS: Dict[str, list] = {
     "counting.cu": [],
     "expand.cu": ["--fmad=false"],
-    "composite.cu": ["--fmad=false"],
+    "composite.cu": ["--fmad=false", "-Xptxas", "-v"],
     "mesh_resolve.cu": ["--fmad=false"],
     "hash_scatter.cu": [],
 }
@@ -60,12 +61,12 @@ _SIGNATURES = {
     "yea_tile_histogram": [_P, _P, _I, _I, _P],
     "yea_counting_layout": [_P, _P, _P, _P, _I, _I, _P],
     "yea_expand_pairs": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "yea_composite_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "yea_composite_forward_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _P],
-    "yea_composite_backward_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _P],
+    "yea_composite_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _I, _P],
+    "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _P],
+    "yea_composite_backward_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
     "yea_hash_scatter_vector_atomics": [],
@@ -74,6 +75,7 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 BUILD_SECONDS = None  # wall time of this process's build (None if reused)
+BUILD_LOGS: Dict[str, str] = {}  # nvcc's output per source of that build
 
 
 def reset_launches() -> None:
@@ -120,6 +122,7 @@ def build() -> Path:
         errors = []
         for name, _, proc in procs:
             log = proc.communicate()[0].decode(errors="replace")
+            BUILD_LOGS[name] = log
             if proc.returncode != 0:
                 errors.append(f"--- {name} ---\n{log}")
         if errors:
