@@ -7,19 +7,21 @@ Phases (each prints its line and seconds; any failure exits non-zero and
 prints no result):
   1. device  — the card, its power limit; TF32 off for matmul and cuDNN.
   2. build   — nvcc builds every kernel under youreditableavatar_tpu_torch/csrc
-               (ptxas's registers / shared memory of the compositing kernels).
+               (ptxas's registers / shared memory of the compositing kernels;
+               the compositing forward's resident 4-CTA clusters).
   3. kernels — every kernel against its plain PyTorch version on the card:
                pair expansion, tile histogram and counting ranks bit-exact,
-               compositing forward (and its per-batch checkpoints) and its
+               compositing forward (its checkpoints bit-exact) and its
                gradient at full width with the tile-depth line, the
                per-pair compositing backward (K6) over the same layout's
                gathered rows (two launches bit-identical; the gather and
                its backward timed apart), K1b and K6 on an adversarial
-               layout built against their cull, the render's input gradients at
-               256² (20k Gaussians) against the plain render on the CPU,
-               the mesh z-buffer resolve bit-exact at 512² on the
-               81,920-face icosphere, plus each kernel's time, its plain
-               version's time and its bound at the main-path shapes.
+               layout built against their cull, the forward over direct
+               rows at the sharded step's layout, the render's input
+               gradients at 256² (20k Gaussians) against the plain render
+               on the CPU, the mesh z-buffer resolve bit-exact at 512² on
+               the 81,920-face icosphere, plus each kernel's time, its
+               plain version's time and its bound at the main-path shapes.
   4. render  — render forward + backward on the 512²/100k sphere-shell scene.
   5. fit     — the init-texture trainer (TetGSInitTrainer) for 50 steps at
                512² on an icosphere with 6 subdivisions (81,920 faces) and
@@ -45,7 +47,9 @@ prints no result):
      against its plain version, ms, plain ms, library ms and bound.
 The last line is {"ok": true, "device": {...}}.
 
-Weights and scenes are random, made from fixed seeds.
+Weights and scenes are random, made from fixed seeds. Without a CUDA card
+the script exits 2; copied alone into a directory without the port, it
+exits 1 (the port does not import).
 """
 
 from __future__ import annotations
@@ -319,7 +323,7 @@ def phase_kernels(dev, report):
         print(f"  composite_forward: {evals} live (pair, pixel) evaluations, "
               f"max |kernel - plain| = {err:.3g} (atol {FWD_ATOL}), "
               f"n_contrib mismatches {mism} of {ck.numel()}")
-        if not err <= FWD_ATOL:
+        if not (err <= FWD_ATOL and mism == 0):
             raise AssertionError("composite forward kernel differs")
         # K1f saving the backward's checkpoints (the main path: a gradient
         # follows): the same outputs bit for bit, and checkpoints and swept
@@ -341,13 +345,8 @@ def phase_kernels(dev, report):
         ckpt_bytes = int(ckpt.swept.sum()) * 5 * 1024 * 4 + num_t * 4
         fwd_bytes = (fields.numel() * 4 + pg.numel() * 4 + 2 * num_t * 4
                      + num_t * 5 * 1024 * 4 + ckpt_bytes)
-        fwd_mean, fwd_times = both_ms(lambda: comp._forward(
-            fields, pg, astart, tcount, ntx, True))
-        nostore_mean, nostore_times = both_ms(lambda: comp._forward(
-            fields, pg, astart, tcount, ntx, False))
-        print(f"  composite_forward with the checkpoint store: "
-              f"{spread(fwd_mean, fwd_times)}; without: "
-              f"{spread(nostore_mean, nostore_times)}")
+        fwd_mean, _ = time_forward(fields, pg, astart, tcount, ntx,
+                                   "512²/100k")
         report["composite_forward"] = dict(
             max_abs_err=err, ms=fwd_mean,
             plain_ms=device_ms(lambda: comp.composite_tiles_plain(
@@ -435,6 +434,7 @@ def phase_kernels(dev, report):
         fields, pg, astart, tcount, ntx, nty, rk, fk, drgb, dt, contrib,
         ckpt_bytes, ckpt)
     check_adversarial(dev)
+    check_sharded_layout(dev)
     report["mesh_resolve"] = check_mesh_resolve(dev)
     report["hash_scatter"] = check_hash_scatter(dev)
 
@@ -455,9 +455,23 @@ def check_checkpoints(ck, ck_plain, astart, what):
         raise AssertionError(f"K1f checkpoints differ ({what})")
 
 
+def time_forward(fields, pg, astart, tcount, ntx, what):
+    """K1f's time with both statistics, with and without the checkpoint
+    store. Returns (mean back to back, one-by-one times) with the store."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+
+    out = {save: both_ms(lambda: comp._forward(
+        fields, pg, astart, tcount, ntx, save)) for save in (True, False)}
+    print(f"  composite_forward ({what}) with the checkpoint store: "
+          f"{spread(*out[True])}; without: {spread(*out[False])}")
+    return out[True]
+
+
 def layout_stats(fields, pg, astart, tcount, ck, n_contrib, evals, ntx, nty):
     """The tile-depth line: pairs per tile, batches, evaluations, and the
-    (pair, warp) sweeps the backward's box cull leaves."""
+    (pair, warp) sweeps the box cull leaves for the backward's 16×8 warp
+    blocks and the forward's 8×4 ones."""
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
         composite_cuda as comp)
 
@@ -472,19 +486,26 @@ def layout_stats(fields, pg, astart, tcount, ck, n_contrib, evals, ntx, nty):
     tx = (tile % ntx).float()[:, None].expand_as(slots)[real] * 32
     ty = torch.div(tile, ntx, rounding_mode="floor").float()[
         :, None].expand_as(slots)[real] * 32
-    hits = 0
-    for w in range(8):
-        x0, y0 = tx + (w % 2) * 16, ty + (w // 2) * 8
-        hits += int((~((box[:, 1] < x0) | (box[:, 0] > x0 + 15)
-                       | (box[:, 3] < y0) | (box[:, 2] > y0 + 7))).sum())
+
+    def hits(bw, bh):  # (pair, warp) sweeps of bw × bh blocks in the box
+        n = 0
+        for x in range(0, 32, bw):
+            for y in range(0, 32, bh):
+                n += int((~((box[:, 1] < tx + x) | (box[:, 0] > tx + x + bw - 1)
+                            | (box[:, 3] < ty + y)
+                            | (box[:, 2] > ty + y + bh - 1))).sum())
+        return n
+
+    pairs = int(real.sum())
     print(f"  tile depth: {int(tcount.sum())} pairs over {c.numel()} tiles "
           f"(max {int(c.max())}, mean {float(c.mean()):.1f}, median "
           f"{float(c.median()):.0f}, {int((c == 0).sum())} empty); "
           f"{int(((c + 127) // 128).sum())} batches, {int(swept.sum())} swept "
           f"(deepest tile {int(swept.max())}); {evals} live (pair, pixel) "
-          f"evaluations, {int(n_contrib.sum())} contributing; "
-          f"{8 * int(real.sum())} (pair, warp) sweeps, {hits} inside the "
-          f"cull box")
+          f"evaluations, {int(n_contrib.sum())} contributing; backward 16×8 "
+          f"blocks: {8 * pairs} (pair, warp) sweeps, {hits(16, 8)} inside "
+          f"the cull box; forward 8×4 blocks: {32 * pairs} sweeps, "
+          f"{hits(8, 4)} inside the box")
 
 
 def adversarial_layout(dev, seed=5, ntx=8, nty=8, n=400):
@@ -604,7 +625,7 @@ def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
     rows = gather_pair_rows(fields, pg)
     p_pad, num_t = rows.shape[0], astart.shape[0]
     with torch.no_grad():
-        rk, fk, _, ck = comp._forward_rows(rows, astart, tcount, ntx, True)
+        rk, fk, nk, ck = comp._forward_rows(rows, astart, tcount, ntx, True)
     if not (torch.equal(rk, rgb) and torch.equal(fk, final_t)):
         raise AssertionError("K1f over direct rows differs from K1f indexed")
     check_checkpoints(ck, ck_indexed, astart, "over direct rows vs indexed")
@@ -639,21 +660,7 @@ def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
     if not (worst <= 1.0 and stray == 0.0 and same):
         raise AssertionError("composite_backward_pairs differs from its plain version")
 
-    # The row gather of the sharded step and its backward, timed apart;
-    # `fields[pg]`'s sort-based index backward beside them.
-    g_rows = torch.randn(rows.shape, device=rows.device)
-    f = fields.detach().requires_grad_()
-    gathered = gather_pair_rows(f, pg)
-    indexed = f[pg.long()]
-    gather_ms = device_ms(lambda: gather_pair_rows(fields, pg), 50)
-    gather_bwd_ms = device_ms(lambda: torch.autograd.grad(
-        gathered, f, g_rows, retain_graph=True), 20)
-    indexed_bwd_ms = device_ms(lambda: torch.autograd.grad(
-        indexed, f, g_rows, retain_graph=True), 5)
-    print(f"  pair-row gather ({p_pad} rows of {fields.shape[0]}): index_select "
-          f"{gather_ms:.4f} ms, its backward (index_add_) {gather_bwd_ms:.4f} "
-          f"ms; fields[pg] backward (sort-based index backward) "
-          f"{indexed_bwd_ms:.4f} ms")
+    time_gather(fields, pg, "512²/100k")
     mean, times = both_ms(lambda: comp.backward_pairs(
         rows, astart, tcount, rk, fk, drgb, dt, ntx, ck))
     moved = (2 * p_pad * rows.shape[1] * 4 + 2 * num_t * 4
@@ -665,6 +672,131 @@ def check_composite_pairs(fields, pg, astart, tcount, ntx, nty, rgb, final_t,
           f"{result['bound'][0]:.4f} ms by {result['bound'][1]}; plain "
           f"backward on the card {plain_ms:.1f} ms")
     return result
+
+
+def kernel_ms(fn, iters=20):
+    """Device time of `fn`'s kernels per call (torch.profiler's sum over
+    `iters` calls): what the events' statistics read when the host keeps
+    up, without the host's time when it does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / iters / 1e3
+
+
+def time_gather(fields, pg, what):
+    """The sharded step's row gather (`index_select`) and its backward
+    (`index_add_` into the zeroed table, every padding slot onto row 0):
+    both statistics and the profiled kernel time; `index_add_` alone, and
+    again with the padding slots spread over distinct rows (contention on
+    row 0); `fields[pg]`'s sort-based index backward beside them."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        gather_pair_rows)
+
+    g_rows = torch.randn((pg.shape[0], fields.shape[1]), device=fields.device)
+    f = fields.detach().requires_grad_()
+    gathered = gather_pair_rows(f, pg)
+    indexed = f[pg.long()]
+    pad = pg == 0
+    spread_pg = torch.where(pad, torch.arange(pg.shape[0], device=pg.device,
+                                              dtype=pg.dtype)
+                            % fields.shape[0], pg)
+
+    def bwd():
+        return torch.autograd.grad(gathered, f, g_rows, retain_graph=True)
+
+    def add(ids):
+        return lambda: torch.zeros_like(fields).index_add_(0, ids, g_rows)
+
+    gather_ms = device_ms(lambda: gather_pair_rows(fields, pg), 50)
+    sort_ms = device_ms(lambda: torch.autograd.grad(
+        indexed, f, g_rows, retain_graph=True), 5)
+    print(f"  pair-row gather at {what} ({pg.shape[0]} rows of "
+          f"{fields.shape[0]}, {int(pad.sum())} padding slots on row 0): "
+          f"index_select {gather_ms:.4f} ms; its backward (autograd → "
+          f"index_add_): {spread(*both_ms(bwd))}, kernels "
+          f"{kernel_ms(bwd):.4f} ms; index_add_ alone: "
+          f"{spread(*both_ms(add(pg)))}, kernels {kernel_ms(add(pg)):.4f} ms; "
+          f"padding spread over distinct rows: "
+          f"{spread(*both_ms(add(spread_pg)))}, kernels "
+          f"{kernel_ms(add(spread_pg)):.4f} ms; fields[pg] backward "
+          f"(sort-based index backward) {sort_ms:.4f} ms")
+
+
+def sharded_scene(dev):
+    """The `sharded` phase's scene: the 81,920-face icosphere (122,880
+    Gaussians) and FIT_VIEWS ring views at WIDTH². Returns (binding,
+    params, cameras, cfg, need): cfg's pair budget fits the most pairs a
+    view needs (`need`)."""
+    from youreditableavatar_tpu_torch.models.cameras import sample_ring_cameras
+    from youreditableavatar_tpu_torch.models.tetgs import (
+        build_tetgs, gaussian_arrays)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        RasterizeConfig, count_pairs, fit_pair_budget)
+
+    verts, faces = icosphere(FIT_SUBDIV)
+    binding, params = build_tetgs(verts, faces, sh_levels=2, device=dev)
+    cams = [c.raster_camera(dev) for c in sample_ring_cameras(
+        radius=2.7, elevations=(10.0,), counts=(FIT_VIEWS,), height=HEIGHT,
+        width=WIDTH)]
+    cfg = RasterizeConfig(sh_degree=1)
+    with torch.no_grad():
+        g = gaussian_arrays(binding, params)
+        need = max(int(count_pairs(*g, c, cfg)) for c in cams)
+    return (binding, params, cams,
+            dataclasses.replace(cfg, pair_budget=fit_pair_budget(need)), need)
+
+
+def check_sharded_layout(dev):
+    """K1f over direct rows at the sharded step's layout (view 0 of the
+    `sharded` phase's scene, one band): against the plain version (images
+    to FWD_ATOL, n_contrib equal, checkpoints bit-equal), with and without
+    the store bit-equal; timed, and the row gather's backward timed at
+    these shapes."""
+    from youreditableavatar_tpu_torch.models.tetgs import gaussian_arrays
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.preprocess import (
+        preprocess_gaussians)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        build_pair_layout_counting, gather_pair_rows)
+    from youreditableavatar_tpu_torch.parallel.train_step import (
+        _shard_proj_rows)
+
+    binding, params, cams, cfg, _ = sharded_scene(dev)
+    ntx = nty = WIDTH // 32
+    with torch.no_grad():
+        g = gaussian_arrays(binding, params)
+        proj = _shard_proj_rows(preprocess_gaussians(
+            *g, cams[0], cfg.sh_degree, 32, cfg.scale_mod,
+            rect_mode=cfg.rect_mode), 0, nty, 32)
+        fields, pg, astart, tcount, _ = build_pair_layout_counting(
+            proj, ntx, nty, cfg.pair_budget, 32)
+        rows = gather_pair_rows(fields, pg)
+        rk, fk, nk, ck = comp._forward_rows(rows, astart, tcount, ntx, True)
+        bare = comp._forward_rows(rows, astart, tcount, ntx, False)
+        rp, fp, cp, ck_plain = comp.composite_tiles_pairs_plain(
+            rows, astart, tcount, ntx, nty, return_checkpoints=True)
+    err = max(float((rk - rp).abs().max()), float((fk - fp).abs().max()))
+    same = all(torch.equal(a, b) for a, b in zip((rk, fk, nk), bare[:3]))
+    print(f"  sharded step's layout (view 0: {int(tcount.sum())} pairs, "
+          f"P_pad {rows.shape[0]}, deepest tile {int(tcount.max())}): K1f "
+          f"over direct rows |kernel - plain| = {err:.3g} (atol {FWD_ATOL}), "
+          f"n_contrib mismatches {int((nk != cp).sum())}; with and without "
+          f"the store bit-equal: {same}")
+    if not (err <= FWD_ATOL and torch.equal(nk, cp) and same):
+        raise AssertionError("K1f over direct rows differs at the sharded "
+                             "step's layout")
+    check_checkpoints(ck, ck_plain, astart, "sharded layout vs plain")
+    time_forward(rows, None, astart, tcount, ntx, "sharded layout")
+    time_gather(fields, pg, "the sharded layout")
 
 
 def check_hash_scatter(dev):
@@ -695,7 +827,7 @@ def check_hash_scatter(dev):
     worst = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
     dense = sum((r + 1) ** 3 <= t for r in cfg.level_resolutions())
     print(f"  hash_scatter: {levels} levels ({dense} dense) × {rows} rows into "
-          f"{levels} × {t} × 2, vector atomics {hc.vector_atomics()}; "
+          f"{levels} × {t} × 2; "
           f"max |card - cpu plain| per level "
           + ", ".join(f"{e:.3g}" for e, _ in errs)
           + f"; worst level at {worst:.3f} of its tolerance "
@@ -819,10 +951,11 @@ def phase_render(dev, kernels):
     return median
 
 
-def profile_window(step, iters, step_ms):
+def profile_window(step, iters, step_ms, watch=None):
     """Device time by kernel over a short steady window (torch.profiler),
     and the device's busy share of the window's wall time and of the
-    unprofiled median step `step_ms` (the profiler slows the host)."""
+    unprofiled median step `step_ms` (the profiler slows the host). With
+    `watch`, also every kernel whose name holds it, and their sum."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -851,6 +984,13 @@ def profile_window(step, iters, step_ms):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / iters / 1e3:8.3f} ms "
               f"{e.count / iters:5.0f}× {e.key[:90]}")
+    if watch:
+        hit = [e for e in kernels if watch in e.key.lower()]
+        print(f"  kernels named '{watch}': "
+              f"{sum(e.self_device_time_total for e in hit) / iters / 1e3:.3f}"
+              f" ms per iteration: " + "; ".join(
+                  f"{e.key[:60]} {e.self_device_time_total / iters / 1e3:.3f}"
+                  f" ms ×{e.count / iters:.0f}" for e in hit))
 
 
 def phase_fit(dev, kernels):
@@ -1233,7 +1373,7 @@ def phase_spatial(dev, kernels):
         cfg, sdf_iters=1, normal_iters=3, sdf_pool_size=200_000), device=dev)
     print("  shape init, 1 SDF + 3 normal steps:")
     profile_window(lambda: short.run(body, faces, seed=1), iters=1,
-                   step_ms=sdf_ms + 3 * normal_ms)
+                   step_ms=sdf_ms + 3 * normal_ms, watch="index")
 
     # ---- SDS geometry edit (stage 1), bench_spatial's operating point ----
     field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.45))
@@ -1294,7 +1434,7 @@ def phase_spatial(dev, kernels):
         if not pairs < mcfg.pair_budget:
             raise AssertionError("the mesh raster's pair budget is too small")
         profile_window(lambda: trainer.train_step(seed=1), iters=5,
-                       step_ms=median)
+                       step_ms=median, watch="index")
     moved = float((trainer.params.grid.detach()
                    - trainer.frozen_params.grid).abs().sum())
     print(f"  parameters moved: Σ|Δ table| = {moved:.6g}; peak memory "
@@ -1323,13 +1463,12 @@ def phase_sharded(dev, kernels):
 
     import torch.distributed as dist
 
-    from youreditableavatar_tpu_torch.models.cameras import sample_ring_cameras
     from youreditableavatar_tpu_torch.models.optimizer import (
         OptimizationParams, make_tetgs_optimizer)
     from youreditableavatar_tpu_torch.models.tetgs import (
-        TetGSParams, build_tetgs, gaussian_arrays)
+        TetGSParams, gaussian_arrays)
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
-        RasterizeConfig, count_pairs, fit_pair_budget, render_gaussians)
+        render_gaussians)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.composite_xla import (
         assemble_image)
     from youreditableavatar_tpu_torch.ops.image_losses import l1_dssim
@@ -1351,22 +1490,17 @@ def phase_sharded(dev, kernels):
         if dist.get_backend() != "nccl":
             raise AssertionError("the sharded step on the card must run on NCCL")
 
-        verts, faces = icosphere(FIT_SUBDIV)
-        binding, params = build_tetgs(verts, faces, sh_levels=2, device=dev)
-        cams = [c.raster_camera(dev) for c in sample_ring_cameras(
-            radius=2.7, elevations=(10.0,), counts=(FIT_VIEWS,), height=HEIGHT,
-            width=WIDTH)]
+        # The targets are the colour-pattern copy's renders; a colour
+        # changes no pair count, so the scene's budget fits them.
+        binding, params, cams, cfg, need = sharded_scene(dev)
         bg = torch.zeros(3, device=dev)
-        with torch.no_grad():  # targets: the colour-pattern copy's renders
+        with torch.no_grad():
             target = TetGSParams(**{k: v.detach().clone()
                                     for k, v in params.named_parameters()})
             target.sh_dc.copy_(rgb_to_sh_dc(torch.as_tensor(
                 pattern_colors(binding.ori_points.cpu().numpy()),
                 dtype=torch.float32, device=dev))[:, None, :])
             g = gaussian_arrays(binding, target)
-            cfg = RasterizeConfig(sh_degree=1)
-            need = max(int(count_pairs(*g, c, cfg)) for c in cams)
-            cfg = dataclasses.replace(cfg, pair_budget=fit_pair_budget(need))
             images = torch.stack([
                 render_gaussians(*g, c, cfg, torch.ones(3, device=dev))["image"]
                 .clamp(0, 1) for c in cams])
@@ -1500,7 +1634,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from youreditableavatar_tpu_torch import _kernels
+    try:
+        from youreditableavatar_tpu_torch import _kernels
+    except ImportError as exc:  # the script alone, without the repository
+        print(f"chip_smoke: the port does not import: {exc}", file=sys.stderr)
+        return 1
 
     dev = torch.device("cuda")
     failures: list = []
@@ -1523,6 +1661,13 @@ def main() -> int:
         for line in _kernels.BUILD_LOGS.get("composite.cu", "").splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print("  ptxas composite.cu:", line.split("ptxas info")[-1].strip())
+        from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+            composite_cuda as comp)
+        clusters = {f"{'indexed' if i else 'rows'}, store {int(s)}":
+                    comp.forward_clusters(i, s)
+                    for i in (True, False) for s in (True, False)}
+        print(f"  K1f's 4-CTA clusters resident at once "
+              f"(cudaOccupancyMaxActiveClusters): {json.dumps(clusters)}")
 
     report: dict = {}
     run_phase("device", device, failures)

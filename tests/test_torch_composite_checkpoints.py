@@ -21,52 +21,21 @@ from hypothesis import strategies as st
 
 from chip_smoke import adversarial_layout
 from torch_port_helpers import (
+    composite_layout,
     cuda_device,  # noqa: F401  (fixture)
-    jax_camera,
-    random_scene,
     single_threaded_torch,  # noqa: F401  (fixture)
-    to_torch_proj,
 )
 from youreditableavatar_tpu_torch.ops.gaussian_raster import composite_cuda as cc
 
-W = H = 64
-BUDGET = 4096
 GRAD_RTOL_OF_MAX = 5e-5  # per column, as the JAX suite holds its backends
 FWD_ATOL = 1e-6  # the JAX suite's forward tolerance against the port
 
 
-def _project(n, scale_hi, opac_scale):
-    """The JAX projection of a 64×64 random scene of n Gaussians (that of
-    test_torch_composite_pairs.py at 700, 0.1, 1); `opac_scale` multiplies
-    the opacities (large: most α clamp at 0.99 and pixels stop early)."""
-    from youreditableavatar_tpu.ops.gaussian_raster.preprocess import (
-        preprocess_gaussians,
-    )
-
-    scene, vm, _, _ = random_scene(11, n, W, H, scale_hi=scale_hi)
-    opac = np.minimum(scene["opac"] * opac_scale, 1.0)
-    return preprocess_gaussians(
-        *(jnp.asarray(scene[k]) for k in ("means", "scales", "quats")),
-        jnp.asarray(opac), jnp.zeros((n, 1, 3)),
-        jax_camera(vm, 0.8, 0.8, W, H), 0, 32,
-        colors_override=jnp.asarray(scene["colors"]))
-
-
 @pytest.fixture(scope="module", params=["sparse", "opaque"])
 def layout(request):
-    """(jax proj, fields_ext, pg_padded, starts, counts) of the counting
-    layout: "sparse" (700 Gaussians, 200–270 pairs a tile) sweeps every
-    batch; "opaque" (1,200 wider Gaussians, opacities × 30; 640–730 pairs
-    a tile) stops a tile after 3 of its 6 batches."""
-    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
-        build_pair_layout_counting,
-    )
-
-    proj = (_project(700, 0.1, 1.0) if request.param == "sparse"
-            else _project(1200, 0.3, 30.0))
-    fields, pg, starts, counts, _ = build_pair_layout_counting(
-        to_torch_proj(proj), 2, 2, BUDGET, 32)
-    return proj, fields, pg, starts, counts
+    """`composite_layout`: "sparse" sweeps every batch, "opaque" stops a
+    tile after 3 of its 6 batches."""
+    return composite_layout(request.param)
 
 
 def _cotangents(num_t, seed=3):

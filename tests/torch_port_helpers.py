@@ -50,6 +50,35 @@ def to_torch_proj(proj):
     return GaussiansProjected(*(torch.tensor(np.asarray(x)) for x in proj))
 
 
+def composite_layout(kind):
+    """(jax proj, fields_ext, pg_padded, starts, counts) of the counting
+    layout of a 64×64 random scene (2 × 2 tiles): "sparse" (700
+    Gaussians, 200–270 pairs a tile) sweeps every batch; "opaque" (1,200
+    wider Gaussians, opacities × 30; 640–730 pairs a tile) stops a tile
+    after 3 of its 6 batches."""
+    import jax.numpy as jnp
+
+    from youreditableavatar_tpu.ops.gaussian_raster.preprocess import (
+        preprocess_gaussians,
+    )
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
+        build_pair_layout_counting,
+    )
+
+    n, scale_hi, opac_scale = (700, 0.1, 1.0) if kind == "sparse" else (
+        1200, 0.3, 30.0)
+    scene, vm, _, _ = random_scene(11, n, 64, 64, scale_hi=scale_hi)
+    opac = np.minimum(scene["opac"] * opac_scale, 1.0)
+    proj = preprocess_gaussians(
+        *(jnp.asarray(scene[k]) for k in ("means", "scales", "quats")),
+        jnp.asarray(opac), jnp.zeros((n, 1, 3)),
+        jax_camera(vm, 0.8, 0.8, 64, 64), 0, 32,
+        colors_override=jnp.asarray(scene["colors"]))
+    fields, pg, starts, counts, _ = build_pair_layout_counting(
+        to_torch_proj(proj), 2, 2, 4096, 32)
+    return proj, fields, pg, starts, counts
+
+
 @pytest.fixture(autouse=True, scope="module")
 def single_threaded_torch():
     """Run a test module's CPU tensor work on one thread (import this name

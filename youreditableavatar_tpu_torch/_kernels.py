@@ -63,13 +63,13 @@ _SIGNATURES = {
     "yea_expand_pairs": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     "yea_composite_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _P],
+    "yea_composite_forward_clusters": [_I, _I],
     "yea_composite_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _I, _I, _I, _I, _P],
     "yea_composite_backward_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
-    "yea_hash_scatter_vector_atomics": [],
 }
 
 _lock = threading.Lock()

@@ -17,23 +17,45 @@
 // than the bytes: ~12.5 MB of field rows, pair ids and image planes
 // forward, ~22 MB backward, plus ~29 MB of checkpoints (below), 12–20 µs
 // at 3.35 TB/s. Two things kept a backward over one CTA per tile far from
-// that: the tiles' depths are skewed (median 210 pairs, max 2,052), so the
+// that, and a forward over one CTA per tile with 4 pixels a thread from its
+// own: the tiles' depths are skewed (median 209 pairs, max 2,052), so the
 // densest tiles ran alone at the end; and the Gaussians are small against a
 // tile (3σ ≈ 6–11 px), so ~93% of the live combinations were evaluated for
 // nothing.
 //
-// Forward (K1f): one CTA per 32×32 tile, 256 threads × 4 pixels each (pixel
-// p = threadIdx.x + 256·k → x = p % 32, y = p / 32). The tile's
-// depth-ordered, 128-aligned pair range is staged 128 pairs at a time into
-// shared memory; each staged row is fields_ext[pg_padded[slot]] (K1f under
-// K1b: the (P_pad, 16) pair rows are never materialised) or rows[slot] (K1f
-// under K6, whose caller gathered the rows): a template flag picks the
-// source. The tile stops when every pixel is done (`__syncthreads_or` after
-// each batch). When a backward will follow (a second template flag), it
-// saves each pixel's state at the start of every batch it sweeps — T, the
-// colour prefix, and 2·n_contrib + done — into (P_pad/128, ·, 1024) buffers
-// indexed by the batch's global number (slot / 128), and the number of
-// batches the tile swept before its early exit.
+// Forward (K1f): one thread-block cluster of 4 CTAs per 32×32 tile, CTA
+// `rank` on the 16×16 quarter (rank & 1, rank >> 1), 256 threads × 1 pixel,
+// each warp a compact 8×4 pixel block. Pixels are independent and depth is
+// the only serial axis, so the split is over pixels: every pixel still
+// takes the tile's pairs in depth order with the same f32 ops. Every CTA
+// stages the tile's depth-ordered, 128-aligned pair range 128 pairs at a
+// time into shared memory (the rows hit in L2 for the other three); each
+// staged row is fields_ext[pg_padded[slot]] (K1f under K1b: the (P_pad, 16)
+// pair rows are never materialised) or rows[slot] (K1f under K6, whose
+// caller gathered the rows): a template flag picks the source, and the
+// staging threads load the next batch's rows while the warps sweep. One
+// thread per pair also computes its `cull_box` (below); a warp skips a
+// pair, warp-uniformly, when its block misses the box or all its pixels
+// are done — exact, since outside the box `blend` gives ok == false: no
+// contrib, no trigger, no state change. Each lane tests one of 32 pairs
+// against the block and a ballot leaves the warp the pairs that overlap
+// (~20% at 512²/100k), which it takes two at a time: both α first (they do
+// not read T, so their expf chains overlap), then each pair's step in
+// depth order. The tile stops after the first batch that
+// leaves none of its 1,024 pixels live, as before the split: each CTA ORs
+// its own (`__syncthreads_or`), writes the flag into slot `rank` of every
+// peer's shared memory (distributed shared memory, two buffers) and one
+// `cluster.sync()` a batch makes the four flags visible; so all four CTAs
+// sweep the same batches and reach the same barriers, a quarter whose
+// pixels are done skipping every `blend`. A first `cluster.sync()`, before
+// the sweep, makes sure every peer has started before its shared memory is
+// written, and a last one keeps every CTA resident until no peer addresses
+// its shared memory. When a
+// backward will follow (a second template flag), each CTA saves its
+// pixels' state at the start of every batch the tile sweeps — T, the
+// colour prefix, and 2·n_contrib + done — into (P_pad/128, ·, 1024)
+// buffers indexed by the batch's global number (slot / 128) and the tile
+// pixel y·32 + x, and rank 0 the number of batches the tile swept.
 //
 // Backward (K1b, K6): one CTA per 128-slot batch, so the work is ~1,400
 // equal CTAs instead of 256 skewed tiles. The CTA finds its tile by a binary
@@ -67,15 +89,18 @@
 // row padding are not ported: all f32, and no tensor cores (the per-pair sums
 // are ragged 128-pixel reductions, and TF32 would drop mantissa bits).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kPix = kTile * kTile;
 constexpr int kThreads = 256;
-constexpr int kPerThread = kPix / kThreads;  // 4 pixels per thread
+constexpr int kPerThread = kPix / kThreads;  // backward: 4 pixels a thread
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlockW = 16;  // one backward warp's pixel block: 16 × 8
 constexpr int kBlockH = 8;
@@ -91,13 +116,13 @@ constexpr float kTEps = (float)1e-4;
 
 struct Blend {
   float alpha, test_t, gauss, dx, dy;
-  bool contrib, trigger;
+  bool ok, contrib, trigger;
 };
 
-// The compositing decision for one live pixel and one pair.
-__device__ __forceinline__ Blend blend(float mx, float my, float ca, float cb,
-                                       float cc, float op, float px, float py,
-                                       float trans) {
+// The part of `blend` that does not read the transmittance.
+__device__ __forceinline__ Blend blend_alpha(float mx, float my, float ca,
+                                             float cb, float cc, float op,
+                                             float px, float py) {
   Blend b;
   b.dx = px - mx;
   b.dy = py - my;
@@ -106,10 +131,23 @@ __device__ __forceinline__ Blend blend(float mx, float my, float ca, float cb,
   b.gauss = expf(power);
   const float raw = op * b.gauss;
   b.alpha = raw < kAlphaClamp ? raw : kAlphaClamp;
-  const bool ok = (power <= 0.0f) && (b.alpha >= kAlphaMin);
+  b.ok = (power <= 0.0f) && (b.alpha >= kAlphaMin);
+  return b;
+}
+
+// The rest: the decisions at transmittance `trans`.
+__device__ __forceinline__ void blend_at(Blend& b, float trans) {
   b.test_t = trans * (1.0f - b.alpha);
-  b.trigger = ok && (b.test_t < kTEps);
-  b.contrib = ok && !b.trigger;
+  b.trigger = b.ok && (b.test_t < kTEps);
+  b.contrib = b.ok && !b.trigger;
+}
+
+// The compositing decision for one live pixel and one pair.
+__device__ __forceinline__ Blend blend(float mx, float my, float ca, float cb,
+                                       float cc, float op, float px, float py,
+                                       float trans) {
+  Blend b = blend_alpha(mx, my, ca, cb, cc, op, px, py);
+  blend_at(b, trans);
   return b;
 }
 
@@ -159,53 +197,56 @@ __device__ __forceinline__ void load_row(const float* __restrict__ fields,
   }
 }
 
-// Stage pair slots [base, base + n) into sp[field][j] (the forward's
-// layout: every thread reads the same pair as a broadcast).
-template <bool kIndexed>
-__device__ __forceinline__ void stage(const float* __restrict__ fields,
-                                      const int* __restrict__ pg, int base,
-                                      int n, int nrows,
-                                      float (*sp)[kChunk]) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    float4 a, b, c;
-    load_row<kIndexed>(fields, pg, base + j, nrows, a, b, c);
-    sp[0][j] = a.x; sp[1][j] = a.y; sp[2][j] = a.z; sp[3][j] = a.w;
-    sp[4][j] = b.x; sp[5][j] = b.y; sp[6][j] = b.z; sp[7][j] = b.w;
-    sp[8][j] = c.x; sp[9][j] = c.y;
-  }
-}
+constexpr int kCluster = 4;  // CTAs per tile in the forward: one quarter each
+constexpr int kQuarter = kTile / 2;
+constexpr int kFwdW = 8;  // one forward warp's pixel block: 8 × 4
+constexpr int kFwdH = 4;
 
-
-constexpr int kStaged = 10;  // mean x/y, conic a/b/c, opacity, r/g/b, row id
-
+// K1f: one cluster of 4 CTAs per tile. CTA `rank` owns 16×16 quarter
+// (rank & 1, rank >> 1) of the tile, each warp a compact 8×4 block, one
+// pixel a thread.
 template <bool kIndexed, bool kSave>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 forward_kernel(const float* __restrict__ fields, const int* __restrict__ pg,
                const int* __restrict__ starts, const int* __restrict__ counts,
                float* __restrict__ rgb, float* __restrict__ final_t,
                int* __restrict__ n_contrib, float* __restrict__ ckpt,
                int* __restrict__ ckpt_n, int* __restrict__ swept, int ntx,
                int nrows, int nbatches) {
-  __shared__ float sp[kStaged][kChunk];
-  const int tile = blockIdx.x;
+  // Staged pairs: (mx, my, ca, cb), (cc, op, r, g), (b, row id, -, -).
+  __shared__ float4 sp[3][kChunk];
+  __shared__ float4 box[kChunk];
+  __shared__ int flags[2][kCluster];  // the cluster's liveness, two buffers
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tile = blockIdx.x / kCluster;
+  const int rank = static_cast<int>(cluster.block_rank());
   const int start = starts[tile];
   const int count = counts[tile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bx = (rank & 1) * kQuarter + (warp & 1) * kFwdW;
+  const int by = (rank >> 1) * kQuarter + (warp >> 1) * kFwdH;
+  const int lx = bx + (lane % kFwdW), ly = by + lane / kFwdW;
+  const int p0 = ly * kTile + lx;
+  const float tx0 = static_cast<float>((tile % ntx) * kTile);
+  const float ty0 = static_cast<float>((tile / ntx) * kTile);
+  const float wx0 = tx0 + bx, wx1 = wx0 + (kFwdW - 1);
+  const float wy0 = ty0 + by, wy1 = wy0 + (kFwdH - 1);
+  const float px = tx0 + lx, py = ty0 + ly;
 
-  float px[kPerThread], py[kPerThread], trans[kPerThread];
-  float cr[kPerThread], cg[kPerThread], cb[kPerThread];
-  int cnt[kPerThread];
-  bool done[kPerThread];
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    px[k] = static_cast<float>((tile % ntx) * kTile + p % kTile);
-    py[k] = static_cast<float>((tile / ntx) * kTile + p / kTile);
-    trans[k] = 1.0f;
-    cr[k] = cg[k] = cb[k] = 0.0f;
-    cnt[k] = 0;
-    done[k] = false;
-  }
+  float trans = 1.0f, cr = 0.0f, cgr = 0.0f, cb = 0.0f;
+  int cnt = 0;
+  bool done = false;
 
+  // Thread j < 128 stages pair j of every batch, its row loaded a batch
+  // ahead.
+  float4 r0, r1, r2;
+  if (threadIdx.x < kChunk && threadIdx.x < count)
+    load_row<kIndexed>(fields, pg, start + threadIdx.x, nrows, r0, r1, r2);
+  // Distributed shared memory is addressed only once every CTA of the
+  // cluster is known to have started.
+  cluster.sync();
   int nswept = 0;
   for (int c0 = 0; c0 < count; c0 += kChunk) {
     const int n = min(kChunk, count - c0);
@@ -213,58 +254,93 @@ forward_kernel(const float* __restrict__ fields, const int* __restrict__ pg,
       // Each pixel's state at the start of this batch.
       const int b = (start + c0) / kChunk;
       if (b < nbatches) {
-        float* dst = ckpt + static_cast<size_t>(b) * kState * kPix;
-#pragma unroll
-        for (int k = 0; k < kPerThread; ++k) {
-          const int p = threadIdx.x + k * kThreads;
-          dst[p] = trans[k];
-          dst[kPix + p] = cr[k];
-          dst[2 * kPix + p] = cg[k];
-          dst[3 * kPix + p] = cb[k];
-          ckpt_n[static_cast<size_t>(b) * kPix + p] = 2 * cnt[k] + done[k];
-        }
+        float* dst = ckpt + static_cast<size_t>(b) * kState * kPix + p0;
+        dst[0] = trans;
+        dst[kPix] = cr;
+        dst[2 * kPix] = cgr;
+        dst[3 * kPix] = cb;
+        ckpt_n[static_cast<size_t>(b) * kPix + p0] = 2 * cnt + done;
       }
     }
-    stage<kIndexed>(fields, pg, start + c0, n, nrows, sp);
+    if (threadIdx.x < n) {
+      sp[0][threadIdx.x] = r0;
+      sp[1][threadIdx.x] = r1;
+      sp[2][threadIdx.x] = r2;
+      box[threadIdx.x] = cull_box(r0.x, r0.y, r0.z, r0.w, r1.x, r1.y);
+    }
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float mx = sp[0][j], my = sp[1][j];
-      const float ca = sp[2][j], cbc = sp[3][j], cc = sp[4][j];
-      const float op = sp[5][j];
-      const float r = sp[6][j], g = sp[7][j], b = sp[8][j];
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        if (done[k]) continue;
-        const Blend o = blend(mx, my, ca, cbc, cc, op, px[k], py[k], trans[k]);
+    // The next batch's rows load while this one is swept.
+    if (threadIdx.x < kChunk && c0 + kChunk + threadIdx.x < count)
+      load_row<kIndexed>(fields, pg, start + c0 + kChunk + threadIdx.x,
+                         nrows, r0, r1, r2);
+
+    bool warp_live = __any_sync(kFull, !done);
+    for (int j0 = 0; j0 < n && warp_live; j0 += 32) {
+      // Lane l tests pair j0 + l against the warp's block (a NaN bound
+      // overlaps); the warp then sweeps the pairs that overlap, in order.
+      bool meets = false;
+      if (j0 + lane < n) {
+        const float4 bb = box[j0 + lane];
+        meets = !(bb.y < wx0 || bb.x > wx1 || bb.w < wy0 || bb.z > wy1);
+      }
+      // The α of two overlapping pairs at a time (it does not read T),
+      // then each pair's step in depth order.
+      auto alpha = [&](int j) {
+        const float4 s0 = sp[0][j], s1 = sp[1][j];
+        return blend_alpha(s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, px, py);
+      };
+      auto step = [&](int j, Blend& o) {
+        if (done) return false;
+        const float4 s1 = sp[1][j], s2 = sp[2][j];
+        blend_at(o, trans);
         if (o.contrib) {
-          const float w = o.alpha * trans[k];
-          cr[k] = cr[k] + w * r;
-          cg[k] = cg[k] + w * g;
-          cb[k] = cb[k] + w * b;
-          trans[k] = o.test_t;
-          cnt[k] += 1;
+          const float w = o.alpha * trans;
+          cr = cr + w * s1.z;
+          cgr = cgr + w * s1.w;
+          cb = cb + w * s2.x;
+          trans = o.test_t;
+          cnt += 1;
         }
-        if (o.trigger) done[k] = true;
+        if (o.trigger) done = true;
+        return o.trigger;
+      };
+      unsigned m = __ballot_sync(kFull, meets);
+      while (m != 0u && warp_live) {
+        const int ja = j0 + __ffs(m) - 1;
+        m &= m - 1u;
+        const bool two = m != 0u;
+        const int jb = two ? j0 + __ffs(m) - 1 : ja;
+        if (two) m &= m - 1u;
+        Blend oa = alpha(ja), ob = alpha(jb);
+        bool trig = step(ja, oa);
+        if (two) trig = step(jb, ob) || trig;
+        if (__any_sync(kFull, trig)) warp_live = __any_sync(kFull, !done);
       }
     }
     ++nswept;
-    bool live = false;
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) live = live || !done[k];
-    if (!__syncthreads_or(live)) break;
+    // The tile's stop rule over its four quarters: each CTA writes its
+    // flag into slot `rank` of every peer's buffer, one cluster barrier,
+    // then each reads its own four slots. Two buffers: a peer writes this
+    // buffer again only after the next barrier, which every thread here
+    // reaches after reading it.
+    const int any = __syncthreads_or(!done);
+    int* buf = flags[nswept & 1];
+    if (threadIdx.x < kCluster)
+      cluster.map_shared_rank(buf, threadIdx.x)[rank] = any != 0;
+    cluster.sync();
+    if (!(buf[0] | buf[1] | buf[2] | buf[3])) break;
   }
-  if (kSave && threadIdx.x == 0) swept[tile] = nswept;
+  // No CTA leaves while a peer may still address its shared memory.
+  cluster.sync();
+  if (kSave && rank == 0 && threadIdx.x == 0) swept[tile] = nswept;
 
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    const size_t o = static_cast<size_t>(tile) * kPix + p;
-    rgb[static_cast<size_t>(tile) * 3 * kPix + p] = cr[k];
-    rgb[static_cast<size_t>(tile) * 3 * kPix + kPix + p] = cg[k];
-    rgb[static_cast<size_t>(tile) * 3 * kPix + 2 * kPix + p] = cb[k];
-    final_t[o] = trans[k];
-    n_contrib[o] = cnt[k];
-  }
+  const size_t o = static_cast<size_t>(tile) * kPix + p0;
+  const size_t o3 = static_cast<size_t>(tile) * 3 * kPix + p0;
+  rgb[o3] = cr;
+  rgb[o3 + kPix] = cgr;
+  rgb[o3 + 2 * kPix] = cb;
+  final_t[o] = trans;
+  n_contrib[o] = cnt;
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
@@ -498,7 +574,7 @@ extern "C" int yea_composite_forward(const float* fields, const int* pg,
   if (num_tiles > 0) {
     auto s = static_cast<cudaStream_t>(stream);
 #define YEA_FWD(I, S)                                                       \
-  forward_kernel<I, S><<<num_tiles, kThreads, 0, s>>>(                     \
+  forward_kernel<I, S><<<kCluster * num_tiles, kThreads, 0, s>>>(           \
       fields, pg, starts, counts, rgb, final_t, n_contrib, ckpt, ckpt_n,    \
       swept, ntx, nrows, nbatches)
     if (indexed && save) YEA_FWD(true, true);
@@ -508,6 +584,32 @@ extern "C" int yea_composite_forward(const float* fields, const int* pg,
 #undef YEA_FWD
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// cudaOccupancyMaxActiveClusters of K1f's cluster kernel, or −(CUDA error).
+extern "C" int yea_composite_forward_clusters(int indexed, int save) {
+  const void* fn =
+      indexed ? (save ? reinterpret_cast<const void*>(forward_kernel<true, true>)
+                      : reinterpret_cast<const void*>(forward_kernel<true, false>))
+              : (save ? reinterpret_cast<const void*>(forward_kernel<false, true>)
+                      : reinterpret_cast<const void*>(forward_kernel<false, false>));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return n;
 }
 
 // K1b: raw per-Gaussian sums into the zeroed (nrows, 16) `dfields`.

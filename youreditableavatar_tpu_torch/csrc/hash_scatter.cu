@@ -16,8 +16,7 @@
 //
 // Design (the tiny-cuda-nn backward, not the TPU's): one thread per
 // (level, row) loads the index, skips the padding sentinel and adds its two
-// values with one 8-byte vector atomicAdd on global memory (sm_90), or two
-// scalar atomics where the toolkit's headers lack the float2 overload. The
+// values with one 8-byte vector atomicAdd on global memory (sm_90). The
 // caller zeroes the table. The TPU kernel's VMEM-resident packed
 // accumulator, SMEM row streams and double-buffered DMA have no
 // counterpart: L2 and the atomics units do that job here.
@@ -29,14 +28,6 @@
 // a later change.
 
 #include <cuda_runtime.h>
-
-#if defined(__CUDACC_VER_MAJOR__) && \
-    (__CUDACC_VER_MAJOR__ > 12 ||      \
-     (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 3))
-#define YEA_VECTOR_ATOMICS 1
-#else
-#define YEA_VECTOR_ATOMICS 0
-#endif
 
 namespace {
 
@@ -54,19 +45,11 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ v0,
     if (row < 0 || row >= table_size) continue;  // padding sentinel
     const long long level = i / rows_per_level;
     float2* dst = out + level * table_size + row;
-#if YEA_VECTOR_ATOMICS && defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
     atomicAdd(dst, make_float2(v0[i], v1[i]));
-#else
-    atomicAdd(&dst->x, v0[i]);
-    atomicAdd(&dst->y, v1[i]);
-#endif
   }
 }
 
 }  // namespace
-
-// 1 when the kernel adds with one float2 atomic per row, 0 with two floats.
-extern "C" int yea_hash_scatter_vector_atomics() { return YEA_VECTOR_ATOMICS; }
 
 extern "C" int yea_hash_scatter(const int* idx, const float* v0,
                                 const float* v1, int levels,

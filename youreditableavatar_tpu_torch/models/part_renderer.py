@@ -103,9 +103,8 @@ def render_part_maps(
 def normal_consistency(mesh: MTOutput) -> Tensor:
     """Mean (1 − cos) between unit normals of edge-adjacent faces."""
     f = mesh.faces.long()
-    p0 = mesh.verts[f[:, 0]]
-    p1 = mesh.verts[f[:, 1]]
-    p2 = mesh.verts[f[:, 2]]
+    # index_select: padded faces gather row 0 (an index_add_ backward).
+    p0, p1, p2 = (mesh.verts.index_select(0, f[:, i]) for i in range(3))
     n = torch.linalg.cross(p1 - p0, p2 - p0)
     n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-20)
     n = torch.where(mesh.faces_valid[:, None], n, torch.zeros_like(n))

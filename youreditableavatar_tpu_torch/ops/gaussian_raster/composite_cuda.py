@@ -13,13 +13,17 @@ each tile's range starts at a multiple of 128 (`CHUNK`), so the layout is a
 sequence of 128-slot batches, each inside one tile.
 
 On the card (`csrc/composite.cu`):
-  forward  — one CTA per 32×32 tile, 256 threads × 4 pixels; the tile's
-             depth-ordered pair range is staged 128 pairs at a time into
-             shared memory, each staged row read as
+  forward  — one cluster of 4 CTAs per 32×32 tile, each CTA a 16×16
+             quarter, 256 threads × 1 pixel, each warp an 8×4 block; every
+             CTA stages the tile's depth-ordered pair range 128 pairs at a
+             time into shared memory, each staged row read as
              `fields_ext[pg_padded[slot]]` (fused) or `pair_rows[slot]`
-             inside the kernel; the tile stops once every pixel is done
-             (`__syncthreads_or`). When a backward will follow it also
-             saves each pixel's state at the start of every batch it
+             inside the kernel, with its α ≥ 1/255 box; a warp skips every
+             pair whose box misses its block (exact: no pixel there would
+             take it). The tile stops after the first batch that leaves
+             none of its pixels live, an OR over the cluster through
+             distributed shared memory. When a backward will follow it also
+             saves each pixel's state at the start of every batch the tile
              sweeps (`Checkpoints`).
   backward — one CTA per batch, resumed from its checkpoint: with the saved
              colour C and final T, the suffix the CUDA reference
@@ -45,7 +49,7 @@ arithmetic, vectorised over (batch, pixel), for the tests.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -61,8 +65,9 @@ from youreditableavatar_tpu_torch.ops.gaussian_raster.composite_xla import (
 )
 
 CHUNK = 128  # alignment quantum of each tile's pair range: one batch
-TILE_SIZE = 32  # the kernels' tile: 1024 pixels = 256 threads × 4
-BLOCK_W, BLOCK_H = 16, 8  # one backward warp's pixel block
+TILE_SIZE = 32  # the kernels' tile: 1024 pixels
+BLOCK_W, BLOCK_H = 16, 8  # one warp's pixel block in the backward
+FWD_BLOCK_W, FWD_BLOCK_H = 8, 4  # one warp's pixel block in the forward
 
 
 class Checkpoints(NamedTuple):
@@ -98,13 +103,17 @@ def _num_batches(p_pad: int) -> int:
 
 
 def _plain_steps(s0, s1, fields_ext, pg_padded, starts, counts, px, py,
-                 trans, done, rgb, cnt, evals=None):
+                 trans, done, rgb, cnt, evals=None, blocks=None):
     """Pair slots s0 ≤ s < s1 of every tile, in the kernels' op order;
-    `evals`, when given, counts the evaluations that met a live pixel."""
+    `evals`, when given, counts the evaluations that met a live pixel.
+    `blocks` (`_warp_blocks`): skip every evaluation whose pair's
+    `cull_box_plain` box misses the pixel's warp block, as the kernels do."""
     p_max = pg_padded.shape[0] - 1
     for s in range(s0, s1):
         rows = fields_ext[pg_padded[torch.clamp(starts + s, max=p_max)].long()]
         live = (~done) & (s < counts)[:, None]
+        if blocks is not None:
+            live = live & ~_misses(cull_box_plain(rows), *blocks)
         dx = px - rows[:, 0:1]
         dy = py - rows[:, 1:2]
         ca, cb, cc = rows[:, 2:3], rows[:, 3:4], rows[:, 4:5]
@@ -127,7 +136,7 @@ def _plain_steps(s0, s1, fields_ext, pg_padded, starts, counts, px, py,
 
 
 def _scan(fields_ext, pg_padded, starts, counts, px, py, state, max_count,
-          chunk, ckpt=None):
+          chunk, ckpt=None, blocks=None):
     """Run `_plain_steps` over slots [0, max_count) in steps of `chunk`
     (remat under autograd). With `ckpt`, steps also break at every batch
     boundary, where each tile's state is recorded while it is live."""
@@ -140,8 +149,9 @@ def _scan(fields_ext, pg_padded, starts, counts, px, py, state, max_count,
         if ckpt is not None:
             s1 = min(s1, (s0 // CHUNK + 1) * CHUNK)
         args = (s0, s1, fields_ext, pg_padded, starts, counts, px, py, *state)
-        out = (checkpoint(_plain_steps, *args, use_reentrant=False) if remat
-               else _plain_steps(*args))
+        out = (checkpoint(_plain_steps, *args, blocks=blocks,
+                          use_reentrant=False) if remat
+               else _plain_steps(*args, blocks=blocks))
         state = out if len(state) == 5 else out[:4]
         s0 = s1
     return state
@@ -164,6 +174,7 @@ def composite_tiles_plain(
     num_tiles_x: int, num_tiles_y: int, tile_size: int = 32,
     chunk: int = 32, return_evals: bool = False,
     return_checkpoints: bool = False,
+    cull_block: Optional[Tuple[int, int]] = None,
 ):
     """Plain PyTorch compositing; autograd gives its gradient.
 
@@ -172,7 +183,10 @@ def composite_tiles_plain(
     met a live pixel — the work the data needs (measurement only) — and,
     with `return_checkpoints`, the `Checkpoints` the kernel saves for its
     backward: the state at each batch a tile sweeps, a tile stopping after
-    the first batch that leaves none of its pixels live.
+    the first batch that leaves none of its pixels live. `cull_block` (w,
+    h): evaluate only where the pair's `cull_box_plain` box meets the
+    pixel's aligned w × h warp block, as the kernels do — every output and
+    checkpoint stays the same, and `evals` counts the evaluations left.
     """
     _check_tile_size(tile_size)
     num_t = starts.shape[0]
@@ -195,8 +209,10 @@ def composite_tiles_plain(
             torch.zeros((nb, pix), dtype=torch.int32, device=dev),
             torch.zeros((num_t,), dtype=torch.int32, device=dev))
     max_count = int(counts.max()) if num_t else 0
+    blocks = (None if cull_block is None else
+              _warp_blocks(num_tiles_x, num_tiles_y, dev, *cull_block))
     state = _scan(fields_ext, pg_padded, starts, counts, px, py, state,
-                  max_count, chunk, ckpt)
+                  max_count, chunk, ckpt, blocks)
     trans, _, rgb, cnt = state[:4]
     out = (rgb, trans, cnt)
     if return_evals:
@@ -255,15 +271,25 @@ def cull_box_plain(rows: Tensor) -> Tensor:
     return torch.where(cull[:, None], box, inf)
 
 
-def _warp_blocks(num_tiles_x: int, num_tiles_y: int, device):
-    """(x0, x1, y0, y1), each (T, PIX) f32: the pixel block of the warp
-    that owns each pixel in the backward (16 × 8, inclusive bounds)."""
+def _warp_blocks(num_tiles_x: int, num_tiles_y: int, device,
+                 block_w: int = BLOCK_W, block_h: int = BLOCK_H):
+    """(x0, x1, y0, y1), each (T, PIX) f32: the aligned block_w × block_h
+    pixel block of the warp that owns each pixel (inclusive bounds): 16 × 8
+    in the backward, 8 × 4 in the forward (two across and four down in a
+    16 × 16 quarter)."""
     px, py = tile_pixel_coords(num_tiles_x, num_tiles_y, TILE_SIZE,
                                device=device)
     p = torch.arange(TILE_SIZE * TILE_SIZE, device=device)
-    x0 = px - (p % TILE_SIZE % BLOCK_W).to(px.dtype)
-    y0 = py - (p // TILE_SIZE % BLOCK_H).to(py.dtype)
-    return x0, x0 + (BLOCK_W - 1), y0, y0 + (BLOCK_H - 1)
+    x0 = px - (p % TILE_SIZE % block_w).to(px.dtype)
+    y0 = py - (p // TILE_SIZE % block_h).to(py.dtype)
+    return x0, x0 + (block_w - 1), y0, y0 + (block_h - 1)
+
+
+def _misses(box, x0, x1, y0, y1):
+    """(K, PIX) bool: pair k's box misses the pixel's block (a NaN bound
+    meets every block, as in the kernels)."""
+    return ((box[:, 1:2] < x0) | (box[:, 0:1] > x1)
+            | (box[:, 3:4] < y0) | (box[:, 2:3] > y1))
 
 
 def composite_backward_plain(
@@ -303,9 +329,7 @@ def composite_backward_plain(
     for j in range(CHUNK):
         slot = torch.clamp(gb * CHUNK + j, max=p_pad - 1)
         rows = fields_ext[pg_padded[slot].long()]
-        box = cull_box_plain(rows)
-        miss = ((box[:, 1:2] < wx0) | (box[:, 0:1] > wx1)
-                | (box[:, 3:4] < wy0) | (box[:, 2:3] > wy1))
+        miss = _misses(cull_box_plain(rows), wx0, wx1, wy0, wy1)
         live = (j < n)[:, None] & ~done & ~miss
         mx, my, ca, cb, cc, op, r, gg, bb = (rows[:, i:i + 1] for i in range(9))
         dx = px - mx
@@ -400,6 +424,17 @@ def _forward(fields, pg_padded, starts, counts, ntx, save):
         num_t, ntx, fields.shape[0], nb, int(pg_padded is not None),
         int(save))
     return rgb, final_t, cnt, ckpt
+
+
+def forward_clusters(indexed: bool, save: bool) -> int:
+    """How many of K1f's 4-CTA clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`)."""
+    n = _kernels.library().yea_composite_forward_clusters(int(indexed),
+                                                          int(save))
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {-n}")
+    return n
 
 
 def _backward_raw(fields_ext, pg_padded, starts, counts, rgb, final_t, drgb,

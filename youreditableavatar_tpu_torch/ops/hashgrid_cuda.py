@@ -75,8 +75,3 @@ def hash_scatter_add(idx: Tensor, v0: Tensor, v1: Tensor,
                     idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), levels,
                     rows, table_size, out.data_ptr())
     return out
-
-
-def vector_atomics() -> bool:
-    """Whether the built kernel adds each row with one float2 atomic."""
-    return bool(_kernels.library().yea_hash_scatter_vector_atomics())

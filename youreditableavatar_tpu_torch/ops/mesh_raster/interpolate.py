@@ -25,11 +25,21 @@ def _pixel_grid(height: int, width: int, device) -> Tuple[Tensor, Tensor]:
     return px.expand(height, width), py.expand(height, width)
 
 
+def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """`x[idx]` for an integer `idx` of any shape, through `index_select`.
+
+    Background pixels and padded faces send long runs of equal indices
+    (row 0); autograd of `x[idx]` is PyTorch's sort-based index backward,
+    which walks each run serially, while `index_select`'s backward is
+    `index_add_` (atomics on the card). The values are the same bits."""
+    return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+
+
 def _visible_corners(out: RasterOutput, faces: Tensor):
     """Vertex ids (H, W, 3) of each pixel's visible face (face 0 on the
     background) and their screen positions."""
-    tri = faces.long()[torch.clamp(out.face_id, min=0).long()]
-    return tri, [out.verts_screen[tri[..., i]] for i in range(3)]
+    tri = gather_rows(faces.long(), torch.clamp(out.face_id, min=0).long())
+    return tri, [gather_rows(out.verts_screen, tri[..., i]) for i in range(3)]
 
 
 def recompute_barycentrics(
@@ -60,9 +70,8 @@ def recompute_barycentrics(
     l0 = 1.0 - l1 - l2
     bary_affine = torch.stack([l0, l1, l2], dim=-1)
 
-    iw0 = out.verts_zw[tri[..., 0], 1]
-    iw1 = out.verts_zw[tri[..., 1], 1]
-    iw2 = out.verts_zw[tri[..., 2], 1]
+    iw0, iw1, iw2 = (gather_rows(out.verts_zw, tri[..., i])[..., 1]
+                     for i in range(3))
     wsum = l0 * iw0 + l1 * iw1 + l2 * iw2
     wsum = torch.where(torch.abs(wsum) > 1e-12, wsum, torch.ones_like(wsum))
     bary_persp = torch.stack(
@@ -91,9 +100,7 @@ def interpolate_attributes(
     bary_a, bary_p = recompute_barycentrics(out, faces)
     bary = bary_p if perspective else bary_a
     tri, _ = _visible_corners(out, faces)
-    a0 = attrs[tri[..., 0]]
-    a1 = attrs[tri[..., 1]]
-    a2 = attrs[tri[..., 2]]
+    a0, a1, a2 = (gather_rows(attrs, tri[..., i]) for i in range(3))
     img = a0 * bary[..., 0:1] + a1 * bary[..., 1:2] + a2 * bary[..., 2:3]
     mask = (out.face_id >= 0)[..., None]
     bg = torch.as_tensor(background, dtype=img.dtype, device=img.device)
@@ -140,9 +147,7 @@ def compute_vertex_normals(
 ) -> Tensor:
     """Area-weighted vertex normals via scatter-add (`index_add_`)."""
     f = faces.long()
-    p0 = verts[f[:, 0]]
-    p1 = verts[f[:, 1]]
-    p2 = verts[f[:, 2]]
+    p0, p1, p2 = (verts.index_select(0, f[:, i]) for i in range(3))
     fn = torch.linalg.cross(p1 - p0, p2 - p0)  # area-weighted
     if faces_valid is not None:
         fn = torch.where(faces_valid[:, None], fn, torch.zeros_like(fn))
