@@ -20,8 +20,15 @@ prints no result):
                rows at the sharded step's layout, the render's input
                gradients at 256² (20k Gaussians) against the plain render
                on the CPU, the mesh z-buffer resolve bit-exact at 512² on
-               the 81,920-face icosphere, plus each kernel's time, its
-               plain version's time and its bound at the main-path shapes.
+               the 81,920-face icosphere, at 500×300 with every face twice
+               and on slivers listed twice (with its layout statistics:
+               pairs, deepest tile, (pair, quarter) and (pair, warp) sweeps
+               in the face box, evaluations inside), the hash-grid scatter
+               at a uniform and a sphere-shell shape with its time split
+               (zero fill, dense levels, hashed levels), the row gather's
+               backward (padding spread off row 0) beside index_select's,
+               plus each kernel's time, its plain version's time and its
+               bound at the main-path shapes.
   4. render  — render forward + backward on the 512²/100k sphere-shell scene.
   5. fit     — the init-texture trainer (TetGSInitTrainer) for 50 steps at
                512² on an icosphere with 6 subdivisions (81,920 faces) and
@@ -692,17 +699,19 @@ def kernel_ms(fn, iters=20):
 
 
 def time_gather(fields, pg, what):
-    """The sharded step's row gather (`index_select`) and its backward
-    (`index_add_` into the zeroed table, every padding slot onto row 0):
-    both statistics and the profiled kernel time; `index_add_` alone, and
-    again with the padding slots spread over distinct rows (contention on
-    row 0); `fields[pg]`'s sort-based index backward beside them."""
+    """The sharded step's row gather (`gather_pair_rows`: `index_select`)
+    and its backward (the padding slots spread over dump rows and
+    dropped): both statistics and the profiled kernel time; beside it
+    `index_select`'s own backward (`index_add_`, every padding slot onto
+    row 0), `index_add_` alone, and again with the padding slots spread
+    over distinct rows; `fields[pg]`'s sort-based index backward."""
     from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
         gather_pair_rows)
 
     g_rows = torch.randn((pg.shape[0], fields.shape[1]), device=fields.device)
     f = fields.detach().requires_grad_()
     gathered = gather_pair_rows(f, pg)
+    selected = f.index_select(0, pg)
     indexed = f[pg.long()]
     pad = pg == 0
     spread_pg = torch.where(pad, torch.arange(pg.shape[0], device=pg.device,
@@ -712,6 +721,9 @@ def time_gather(fields, pg, what):
     def bwd():
         return torch.autograd.grad(gathered, f, g_rows, retain_graph=True)
 
+    def select_bwd():
+        return torch.autograd.grad(selected, f, g_rows, retain_graph=True)
+
     def add(ids):
         return lambda: torch.zeros_like(fields).index_add_(0, ids, g_rows)
 
@@ -720,9 +732,11 @@ def time_gather(fields, pg, what):
         indexed, f, g_rows, retain_graph=True), 5)
     print(f"  pair-row gather at {what} ({pg.shape[0]} rows of "
           f"{fields.shape[0]}, {int(pad.sum())} padding slots on row 0): "
-          f"index_select {gather_ms:.4f} ms; its backward (autograd → "
-          f"index_add_): {spread(*both_ms(bwd))}, kernels "
-          f"{kernel_ms(bwd):.4f} ms; index_add_ alone: "
+          f"index_select {gather_ms:.4f} ms; its backward (padding spread "
+          f"over dump rows): {spread(*both_ms(bwd))}, kernels "
+          f"{kernel_ms(bwd):.4f} ms; index_select's own backward (every "
+          f"padding slot onto row 0): {spread(*both_ms(select_bwd))}, kernels "
+          f"{kernel_ms(select_bwd):.4f} ms; index_add_ alone: "
           f"{spread(*both_ms(add(pg)))}, kernels {kernel_ms(add(pg)):.4f} ms; "
           f"padding spread over distinct rows: "
           f"{spread(*both_ms(add(spread_pg)))}, kernels "
@@ -799,68 +813,206 @@ def check_sharded_layout(dev):
     time_gather(fields, pg, "the sharded layout")
 
 
+def scatter_points(shape: str, gen) -> torch.Tensor:
+    """(SCATTER_POINTS, 3) points in [0, 1]³ for K4's check: "uniform", or
+    "shell" — a sphere shell of radius 0.225 about the centre (the spatial
+    edit's 0.45 sphere in the field's unit cube), 0.003 thick, in tet-grid
+    order (64³ cells, x fastest) as the isosurface's vertices come, so
+    neighbouring rows share coarse corners."""
+    if shape == "uniform":
+        return torch.rand((SCATTER_POINTS, 3), generator=gen)
+    d = torch.randn((SCATTER_POINTS, 3), generator=gen)
+    d = d / d.norm(dim=1, keepdim=True)
+    x = 0.5 + d * (0.225 + 0.003 * torch.randn((SCATTER_POINTS, 1), generator=gen))
+    cell = torch.floor(x * SPATIAL_GRID).long()
+    key = (cell[:, 2] * SPATIAL_GRID + cell[:, 1]) * SPATIAL_GRID + cell[:, 0]
+    return x[torch.argsort(key, stable=True)]
+
+
 def check_hash_scatter(dev):
-    """K4 against its plain version: the corner rows of 65,536 random
-    points through the production HashGridConfig's 16 levels (dense coarse
-    levels included), normal values, one row in 16 the padding sentinel.
-    The plain version sums sequentially on the CPU copy."""
+    """K4 against its plain version: the corner rows of 65,536 points (a
+    uniform and a sphere-shell shape) through the production
+    HashGridConfig's 16 levels, each level's extent passed as the spatial
+    stage passes it (levels 0–1 privatized), normal values, one row in 16
+    the padding sentinel. The plain version sums sequentially on the CPU
+    copy. Then the time split: the zero fill, dense levels 0–4 and hashed
+    levels 5–15, each into a zeroed table, and the generic path (no
+    extents) beside the main path's."""
     from youreditableavatar_tpu_torch.ops import hashgrid as hg
     from youreditableavatar_tpu_torch.ops import hashgrid_cuda as hc
 
     cfg = hg.HashGridConfig()
     t = cfg.table_size
-    gen = torch.Generator().manual_seed(4)
-    x = torch.rand((SCATTER_POINTS, 3), generator=gen)
-    idx = torch.stack([hg._level_corners(x, res, t)[0].reshape(-1)
-                       for res in cfg.level_resolutions()]).to(torch.int32)
-    idx[:, ::16] = t
-    v0 = torch.randn(idx.shape, generator=gen)
-    v1 = torch.randn(idx.shape, generator=gen)
-    levels, rows = idx.shape
-    t0 = time.perf_counter()
-    ref = hc.hash_scatter_add_plain(idx, v0, v1, t)
-    cpu_ms = (time.perf_counter() - t0) * 1e3
-    idx_d, v0_d, v1_d = (a.to(dev) for a in (idx, v0, v1))
-    out = hc.hash_scatter_add(idx_d, v0_d, v1_d, t).cpu()
-    errs = [(float((out[l] - ref[l]).abs().max()), float(ref[l].abs().max()))
-            for l in range(levels)]
-    worst = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
+    extents = hg.level_extents(cfg)
     dense = sum((r + 1) ** 3 <= t for r in cfg.level_resolutions())
-    print(f"  hash_scatter: {levels} levels ({dense} dense) × {rows} rows into "
-          f"{levels} × {t} × 2; "
-          f"max |card - cpu plain| per level "
-          + ", ".join(f"{e:.3g}" for e, _ in errs)
-          + f"; worst level at {worst:.3f} of its tolerance "
-          f"({SCATTER_RTOL_OF_MAX}·max|plain|); cpu plain {cpu_ms:.1f} ms")
-    if not worst <= 1.0:
-        raise AssertionError("hash_scatter kernel differs from its plain version")
-    # index_add_ over the same rows into a flattened table with one dump
-    # row for the sentinels (indices prepared outside the timing).
-    level = torch.arange(levels, device=dev)[:, None]
-    flat = torch.where(idx_d < t, level * t + idx_d.long(),
-                       torch.full_like(level, levels * t)).reshape(-1)
-    vals = torch.stack([v0_d, v1_d], -1).reshape(-1, 2)
-    times = each_device_ms(lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t), 30)
-    out = dict(
-        max_abs_err=max(e for e, _ in errs),
-        ms=statistics.median(times),
-        plain_ms=device_ms(lambda: hc.hash_scatter_add_plain(
-            idx_d, v0_d, v1_d, t), 10),
-        library_ms=device_ms(lambda: torch.zeros(
-            (levels * t + 1, 2), device=dev).index_add_(0, flat, vals), 10),
-        bound=bound(levels * rows * 12 + levels * t * 2 * 4, 2 * levels * rows),
-    )
-    print(f"  hash_scatter: median {out['ms']:.4f} ms over 30 launches (min "
-          f"{min(times):.4f}, max {max(times):.4f}), zeroing included; bound "
-          f"{out['bound'][0]:.4f} ms by {out['bound'][1]}; plain version on the "
-          f"card {out['plain_ms']:.4f} ms; index_add_ {out['library_ms']:.4f} ms")
-    return out
+    gen = torch.Generator().manual_seed(4)
+    result = None
+    for shape in ("uniform", "shell"):
+        x = scatter_points(shape, gen)
+        idx = torch.stack([hg._level_corners(x, res, t)[0].reshape(-1)
+                           for res in cfg.level_resolutions()]).to(torch.int32)
+        idx[:, ::16] = t
+        v0 = torch.randn(idx.shape, generator=gen)
+        v1 = torch.randn(idx.shape, generator=gen)
+        levels, rows = idx.shape
+        t0 = time.perf_counter()
+        ref = hc.hash_scatter_add_plain(idx, v0, v1, t)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        idx_d, v0_d, v1_d = (a.to(dev) for a in (idx, v0, v1))
+        worst, err = 0.0, 0.0
+        for ext in (extents, None):
+            out = hc.hash_scatter_add(idx_d, v0_d, v1_d, t, extents=ext).cpu()
+            errs = [(float((out[l] - ref[l]).abs().max()),
+                     float(ref[l].abs().max())) for l in range(levels)]
+            w = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
+            print(f"  hash_scatter, {shape} points, "
+                  f"{'extents' if ext else 'generic'}: {levels} levels "
+                  f"({dense} dense, {bin(hc.aggregated_levels(ext, t)).count('1')} warp-aggregated) × "
+                  f"{rows} rows into {levels} × {t} × 2; max |card - cpu "
+                  f"plain| per level " + ", ".join(f"{e:.3g}" for e, _ in errs)
+                  + f"; worst level at {w:.3f} of its tolerance "
+                  f"({SCATTER_RTOL_OF_MAX}·max|plain|); cpu plain {cpu_ms:.1f} ms")
+            worst, err = max(worst, w), max(err, max(e for e, _ in errs))
+        if not worst <= 1.0:
+            raise AssertionError("hash_scatter kernel differs from its plain version")
+        uniq = [int(torch.unique(idx[l][idx[l] < t]).numel()) for l in range(levels)]
+
+        def part(lo, hi, ext):
+            table = torch.zeros((hi - lo, t, 2), device=dev)
+            return lambda: hc._scatter_into(
+                idx_d[lo:hi], v0_d[lo:hi], v1_d[lo:hi], t,
+                None if ext is None else ext[lo:hi], table)
+
+        def med(fn, n=30):
+            return statistics.median(each_device_ms(fn, n))
+
+        times = each_device_ms(
+            lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t, extents=extents), 30)
+        split = dict(
+            zero=med(lambda: torch.zeros((levels, t, 2), device=dev)),
+            dense=med(part(0, dense, extents)),
+            hashed=med(part(dense, levels, extents)),
+            generic_dense=med(part(0, dense, None)),
+            generic=med(lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t)))
+        print(f"  hash_scatter, {shape} points: distinct rows per level "
+              f"{uniq}; median {statistics.median(times):.4f} ms over 30 "
+              f"launches (min {min(times):.4f}, max {max(times):.4f}), "
+              f"zeroing included; split (medians): zero fill "
+              f"{split['zero']:.4f} ms, dense levels 0–{dense - 1} "
+              f"{split['dense']:.4f} ms (generic path {split['generic_dense']:.4f}), "
+              f"hashed levels {dense}–{levels - 1} {split['hashed']:.4f} ms; "
+              f"the generic path whole {split['generic']:.4f} ms")
+        if result is None:  # the check's shape: uniform points
+            level = torch.arange(levels, device=dev)[:, None]
+            flat = torch.where(idx_d < t, level * t + idx_d.long(),
+                               torch.full_like(level, levels * t)).reshape(-1)
+            vals = torch.stack([v0_d, v1_d], -1).reshape(-1, 2)
+            result = dict(
+                max_abs_err=err, ms=statistics.median(times),
+                plain_ms=device_ms(lambda: hc.hash_scatter_add_plain(
+                    idx_d, v0_d, v1_d, t), 10),
+                library_ms=device_ms(lambda: torch.zeros(
+                    (levels * t + 1, 2), device=dev).index_add_(0, flat, vals), 10),
+                bound=bound(levels * rows * 12 + levels * t * 2 * 4,
+                            2 * levels * rows),
+            )
+            print(f"  hash_scatter: bound {result['bound'][0]:.4f} ms by "
+                  f"{result['bound'][1]}; plain version on the card "
+                  f"{result['plain_ms']:.4f} ms; index_add_ "
+                  f"{result['library_ms']:.4f} ms")
+    return result
+
+
+def sliver_rows(seed: int = 11, n: int = 3000, width: int = 500,
+                height: int = 300) -> np.ndarray:
+    """(2n, 9) f32 screen-space face rows against K5's cull box and its
+    ties: slivers 1 to 400 px long and 1e-7 to 1 px across, at random
+    angles and along the axes and diagonals, half of them with a vertex on
+    a pixel centre, around and across a width × height image; every face
+    listed twice, so the first copy must win every pixel."""
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform([-40, -40], [width + 40, height + 40], (n, 2))
+    p0[: n // 2] = np.round(p0[: n // 2])
+    ang = rng.uniform(0.0, 2 * np.pi, n)
+    ang[::4] = rng.integers(0, 8, len(ang[::4])) * (np.pi / 4)
+    length = 10.0 ** rng.uniform(0.0, 2.6, n)
+    across = 10.0 ** rng.uniform(-7.0, 0.0, n)
+    t = rng.uniform(-0.5, 1.5, n)
+    e = np.stack([np.cos(ang), np.sin(ang)], 1)
+    perp = np.stack([-e[:, 1], e[:, 0]], 1)
+    p1 = p0 + length[:, None] * e
+    p2 = p0 + (t * length)[:, None] * e + across[:, None] * perp
+    z = rng.uniform(0.1, 0.9, (n, 3))
+    rows = np.concatenate([p0, p1, p2, z], 1).astype(np.float32)
+    return np.concatenate([rows, rows])
+
+
+def mesh_resolve_layout(rows, width, height, budget, dev):
+    """`resolve_tiles` arguments for screen-space face rows, binned as
+    `tile_face_lists` bins a mesh's (non-degenerate faces only)."""
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    rows = torch.as_tensor(rows, device=dev)
+    x0, y0, x1, y1, x2, y2 = (rows[:, i] for i in range(6))
+    ok = torch.abs((x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)) > 1e-12
+    tiles, rect, ntx, nty = raster.bin_face_rows(rows, ok, width, height, 32)
+    face_s, starts, counts = raster._expand_pairs(tiles, rect, ntx, nty, budget)
+    return rows, face_s, starts, counts, ntx, nty, 32, width, height
+
+
+def mesh_resolve_stats(args):
+    """K5's work on a layout: pairs; (pair, quarter) and (pair, warp)
+    sweeps whose face box meets the 16×16 quarter / 8×4 block (the CTA's
+    and the warp's cull); and the (pair, pixel) evaluations that pass the
+    inside test, which the bound counts."""
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    rows, face_s, starts, counts, ntx, nty = args[:6]
+    num_t = ntx * nty
+    pairs = int(counts.sum())
+    dev = rows.device
+    tile = torch.repeat_interleave(torch.arange(num_t, device=dev),
+                                   counts.long())
+    face = face_s[:pairs].long()  # the tiles' lists, in tile order
+    r = rows[face]
+    d = (r[:, 2] - r[:, 0]) * (r[:, 5] - r[:, 1]) - (r[:, 3] - r[:, 1]) * (r[:, 4] - r[:, 0])
+    live = torch.abs(d) > 1e-12
+    box = raster.face_box_plain(r)
+    tx = (tile % ntx).to(torch.float32)[:, None] * 32
+    ty = torch.div(tile, ntx, rounding_mode="floor").to(torch.float32)[:, None] * 32
+
+    def hits(bw, bh):
+        k = torch.arange((32 // bw) * (32 // bh), device=dev)
+        bx = tx + (k % (32 // bw)).to(torch.float32) * bw
+        by = ty + torch.div(k, 32 // bw, rounding_mode="floor").to(torch.float32) * bh
+        meet = ~((box[:, 1:2] < bx) | (box[:, 0:1] > bx + (bw - 1))
+                 | (box[:, 3:4] < by) | (box[:, 2:3] > by + (bh - 1)))
+        return int((meet & live[:, None]).sum())
+
+    inside = 0
+    p = torch.arange(1024, device=dev)
+    for c in range(0, pairs, 4096):
+        rc, dc = r[c:c + 4096], d[c:c + 4096][:, None]
+        px = tx[c:c + 4096] + (p % 32).to(torch.float32)
+        py = ty[c:c + 4096] + torch.div(p, 32, rounding_mode="floor").to(torch.float32)
+        x0, y0, x1, y1, x2, y2 = (rc[:, i:i + 1] for i in range(6))
+        inv_d = torch.where(dc.abs() > 1e-12, 1.0 / dc, torch.zeros_like(dc))
+        l1 = ((px - x0) * (y2 - y0) - (py - y0) * (x2 - x0)) * inv_d
+        l2 = ((py - y0) * (x1 - x0) - (px - x0) * (y1 - y0)) * inv_d
+        l0 = 1.0 - l1 - l2
+        inside += int(((l0 >= 0) & (l1 >= 0) & (l2 >= 0)
+                       & (dc.abs() > 1e-12)).sum())
+    return dict(pairs=pairs, deepest=int(counts.max()) if num_t else 0,
+                quarter_hits=hits(16, 16), warp_hits=hits(8, 4),
+                inside=inside)
 
 
 def check_mesh_resolve(dev):
-    """K5 against its plain version at the edit phase's shapes: the
-    81,920-face icosphere from the first ring view at 512², default
-    MeshRasterConfig. Everything must agree bit for bit."""
+    """K5 against its plain version, bit for bit: at the edit phase's
+    shapes (the 81,920-face icosphere from the first ring view at 512²,
+    default MeshRasterConfig), at 500×300 with every face twice (ties, a
+    ragged edge), and on slivers listed twice (the cull box, ties). Its
+    layout statistics, its time and its bound."""
     from youreditableavatar_tpu_torch.models.cameras import sample_ring_cameras
     from youreditableavatar_tpu_torch.ops.mesh_raster import raster
 
@@ -905,15 +1057,48 @@ def check_mesh_resolve(dev):
               f"{2 * len(faces)} faces")
         if not (same and 0 <= int(tied_k[1].max()) < len(faces)):
             raise AssertionError("mesh_resolve differs on ties or a ragged edge")
+
+        # Slivers (1e-7 to 1 px across) listed twice at 500×300.
+        srows = sliver_rows()
+        args3 = mesh_resolve_layout(srows, 500, 300, 1 << 20, dev)
+        sk = raster.resolve_tiles(*args3)
+        sp = raster.resolve_tiles_plain(*args3)
+        same = all(torch.equal(a, b) for a, b in zip(sk, sp))
+        st = mesh_resolve_stats(args3)
+        print(f"  mesh_resolve on {len(srows)} sliver faces (each twice) at "
+              f"500×300: {st['pairs']} pairs, {int((sk[1] >= 0).sum())} "
+              f"covered pixels, bit-equal to the plain version: {same}; "
+              f"largest visible face id {int(sk[1].max())}; (pair, warp) "
+              f"sweeps in the box {st['warp_hits']} of {32 * st['pairs']}")
+        if not (same and int(sk[1].max()) < len(srows) // 2):
+            raise AssertionError("mesh_resolve differs on slivers")
+
+        st = mesh_resolve_stats(args)
         moved = (rows.numel() * 4 + face_s.numel() * 4 + 2 * starts.numel() * 4
                  + WIDTH * HEIGHT * 16)
-        return dict(
+        dense = bound(moved, MESH_OPS_PER_EVAL * pairs * cfg.tile_size ** 2)
+        out = dict(
             max_abs_err=err,
             ms=device_ms(lambda: raster.resolve_tiles(*args), 50),
             plain_ms=device_ms(lambda: raster.resolve_tiles_plain(*args), 3,
                                warmup=1),
-            bound=bound(moved, MESH_OPS_PER_EVAL * pairs * cfg.tile_size ** 2),
+            bound=bound(moved, MESH_OPS_PER_EVAL * st["inside"]),
         )
+        times = each_device_ms(lambda: raster.resolve_tiles(*args), 30)
+        print(f"  mesh_resolve layout: {st['pairs']} pairs, deepest tile "
+              f"{st['deepest']}; (pair, quarter) sweeps in the box "
+              f"{st['quarter_hits']} of {4 * st['pairs']} "
+              f"({st['quarter_hits'] / (4 * st['pairs']):.4f}); (pair, warp) "
+              f"sweeps in the box {st['warp_hits']} of {32 * st['pairs']} "
+              f"({st['warp_hits'] / (32 * st['pairs']):.4f}); (pair, pixel) "
+              f"evaluations inside {st['inside']}")
+        print(f"  mesh_resolve: mean {out['ms']:.4f} ms over 50 launches back "
+              f"to back; one by one median {statistics.median(times):.4f} (min "
+              f"{min(times):.4f}); bound {out['bound'][0]:.5f} ms by "
+              f"{out['bound'][1]} (the dense sweep's, every (pair, pixel) at "
+              f"{MESH_OPS_PER_EVAL} ops: {dense[0]:.4f} ms); plain version on "
+              f"the card {out['plain_ms']:.2f} ms")
+        return out
 
 
 def phase_render(dev, kernels):
@@ -955,7 +1140,8 @@ def profile_window(step, iters, step_ms, watch=None):
     """Device time by kernel over a short steady window (torch.profiler),
     and the device's busy share of the window's wall time and of the
     unprofiled median step `step_ms` (the profiler slows the host). With
-    `watch`, also every kernel whose name holds it, and their sum."""
+    `watch`, also every kernel whose name holds it, and their sum, and the
+    same for index_add_'s kernels ("indexFunc")."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -984,11 +1170,13 @@ def profile_window(step, iters, step_ms, watch=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / iters / 1e3:8.3f} ms "
               f"{e.count / iters:5.0f}× {e.key[:90]}")
-    if watch:
-        hit = [e for e in kernels if watch in e.key.lower()]
-        print(f"  kernels named '{watch}': "
+    for name in (watch, "indexfunc") if watch else ():
+        # "indexFunc…" kernels are index_add_'s (index_select's backward).
+        hit = [e for e in kernels if name in e.key.lower()]
+        print(f"  kernels named '{name}': "
               f"{sum(e.self_device_time_total for e in hit) / iters / 1e3:.3f}"
-              f" ms per iteration: " + "; ".join(
+              f" ms, {sum(e.count for e in hit) / iters:.0f} launches per "
+              f"iteration: " + "; ".join(
                   f"{e.key[:60]} {e.self_device_time_total / iters / 1e3:.3f}"
                   f" ms ×{e.count / iters:.0f}" for e in hit))
 

@@ -150,7 +150,9 @@ def test_pair_rows_match_jax_bit_exact(layout):
 
 def test_gather_backward_is_index_add():
     """The pair-row gather differentiates into `index_add_` (atomics on the
-    card), not the sort-based backward of `x[idx]`; both sum alike."""
+    card), not the sort-based backward of `x[idx]`; both sum alike on every
+    Gaussian's row. The padding slots (row 0, the layout's zero row, whose
+    gradient no caller keeps) go to spread dump rows and are dropped."""
     from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
         gather_pair_rows,
     )
@@ -161,11 +163,13 @@ def test_gather_backward_is_index_add():
     pg = torch.tensor(np.where(rng.random(600) < 0.4, 0,
                                rng.integers(1, 50, 600)).astype(np.int32))
     rows = gather_pair_rows(fields, pg)
-    assert type(rows.grad_fn).__name__.startswith("IndexSelectBackward")
+    assert torch.equal(rows, fields.detach()[pg.long()])
+    assert type(rows.grad_fn).__name__.startswith("_PaddedGatherBackward")
     g = torch.tensor(rng.normal(size=(600, 16)).astype(np.float32))
     rows.backward(g)
     want = torch.zeros(50, 16).index_add_(0, pg.long(), g)
-    torch.testing.assert_close(fields.grad, want, rtol=0, atol=1e-5)
+    torch.testing.assert_close(fields.grad[1:], want[1:], rtol=0, atol=1e-5)
+    assert torch.equal(fields.grad[0], torch.zeros(16))
 
 
 def test_pair_gradient_sums_to_the_fused_gradient(layout):

@@ -228,3 +228,88 @@ def test_hash_scatter_kernel_matches_plain_on_card(cuda_device):
     for lv in range(L):
         tol = 1e-5 * float(ref[lv].abs().max())
         assert float((out[lv] - ref[lv]).abs().max()) <= tol
+
+
+class TestExtents:
+    def test_extents_bound_every_corner_id(self):
+        """The per-level extents passed to K4 bound every corner id that
+        `_level_corners` produces for the production config: random points,
+        the cube's corners and faces (x = 0 and 1 clip to the last cell)."""
+        cfg = thg.HashGridConfig()
+        ext = thg.level_extents(cfg)
+        rng = np.random.default_rng(11)
+        pts = np.concatenate([rng.uniform(0, 1, (20_000, 3)),
+                              np.array(np.meshgrid([0, 1], [0, 1], [0, 1]))
+                              .reshape(3, -1).T,
+                              rng.integers(0, 2, (500, 3)) * 1.0]).astype(np.float32)
+        x = torch.tensor(pts)
+        for lvl, res in enumerate(cfg.level_resolutions()):
+            idx = thg._level_corners(x, res, cfg.table_size)[0]
+            assert int(idx.min()) >= 0 and int(idx.max()) < ext[lvl], lvl
+            if ext[lvl] < cfg.table_size:  # dense: the last id is reached
+                assert int(idx.max()) == ext[lvl] - 1, lvl
+        assert ext[:5] == [4913, 12167, 29791, 79507, 205379]
+        assert ext[5:] == [cfg.table_size] * 11
+
+    def test_aggregated_levels(self):
+        cfg = thg.HashGridConfig()
+        t = cfg.table_size
+        assert hashgrid_cuda.aggregated_levels(None, t) == 0
+        assert hashgrid_cuda.aggregated_levels(thg.level_extents(cfg), t) == 0b11111
+        assert hashgrid_cuda.aggregated_levels([t] * 70, t) == 0
+        assert hashgrid_cuda.aggregated_levels([1] * 70, t) == (1 << 64) - 1
+
+    def test_extents_keep_the_plain_result(self):
+        """On CPU tensors `extents` changes nothing; a wrong length raises."""
+        rng = np.random.default_rng(12)
+        idx = torch.tensor(rng.integers(0, 129, (3, 500)).astype(np.int32))
+        v0, v1 = (torch.tensor(rng.normal(size=(3, 500)).astype(np.float32))
+                  for _ in range(2))
+        want = hashgrid_cuda.hash_scatter_add_plain(idx, v0, v1, 128)
+        got = hashgrid_cuda.hash_scatter_add(idx, v0, v1, 128, extents=[64, 128, 128])
+        assert torch.equal(got, want)
+        with pytest.raises(ValueError):
+            hashgrid_cuda.hash_scatter_add(idx, v0, v1, 128, extents=[64, 128])
+
+    def test_table_gradient_passes_the_extents(self, monkeypatch):
+        """The encoding's backward hands K4 each active level's extent."""
+        cfg = thg.HashGridConfig(n_levels=4, log2_hashmap_size=12,
+                                 base_resolution=4, per_level_scale=2.0)
+        seen = []
+        real = thg.hash_scatter_add
+
+        def spy(*args, **kw):
+            seen.append(kw.get("extents"))
+            return real(*args, **kw)
+
+        monkeypatch.setattr(thg, "hash_scatter_add", spy)
+        params = thg.init_hashgrid_params(torch.Generator().manual_seed(0), cfg)
+        params.requires_grad_()
+        x = torch.rand((64, 3), generator=torch.Generator().manual_seed(1))
+        thg.hashgrid_encode(params, x, cfg, n_active=3).sum().backward()
+        assert seen == [thg.level_extents(cfg)[:3]]
+
+
+@pytest.mark.cuda
+def test_hash_scatter_kernel_clustered_with_extents_on_card(cuda_device):
+    """K4 with the production extents (dense levels warp-aggregated) on
+    points of a sphere shell in grid order, where neighbouring rows share
+    coarse corners: ≤ 1e-5 · max |plain| per level."""
+    from chip_smoke import scatter_points
+
+    cfg = thg.HashGridConfig()
+    t = cfg.table_size
+    x = scatter_points("shell", torch.Generator().manual_seed(5))[:16_384]
+    idx = torch.stack([thg._level_corners(x, r, t)[0].reshape(-1)
+                       for r in cfg.level_resolutions()]).to(torch.int32)
+    idx[:, ::16] = t
+    rng = np.random.default_rng(6)
+    v0, v1 = (torch.tensor(rng.normal(size=idx.shape).astype(np.float32))
+              for _ in range(2))
+    out = hashgrid_cuda.hash_scatter_add(
+        *(a.to(cuda_device) for a in (idx, v0, v1)), t,
+        extents=thg.level_extents(cfg)).cpu()
+    ref = hashgrid_cuda.hash_scatter_add_plain(idx, v0, v1, t)
+    for lv in range(cfg.n_levels):
+        tol = 1e-5 * float(ref[lv].abs().max())
+        assert float((out[lv] - ref[lv]).abs().max()) <= tol

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from chip_smoke import icosphere
 from torch_port_helpers import (
@@ -322,3 +324,96 @@ def test_resolve_kernel_matches_plain_on_card(cuda_device):
     for a, b in zip(raster.resolve_tiles(*args),
                     raster.resolve_tiles_plain(*args)):
         assert torch.equal(a, b)
+
+
+# ---- K5's conservative face box ------------------------------------------------
+
+
+@st.composite
+def _slivers(draw):
+    """One face row at 64² that is thin, long or grazes pixel centres:
+    vertices on or off the pixel grid, any angle or an axis / diagonal,
+    1e-7 to 2 px across (or a well-shaped triangle), 0.5 to 300 px long."""
+    x0, y0 = draw(st.floats(0.0, 64.0)), draw(st.floats(0.0, 64.0))
+    if draw(st.booleans()):
+        x0, y0 = float(round(x0)), float(round(y0))
+    ang = draw(st.one_of(st.floats(0.0, 2 * np.pi),
+                         st.sampled_from([k * np.pi / 4 for k in range(8)])))
+    length = draw(st.floats(0.5, 300.0))
+    across = draw(st.one_of(st.floats(1e-7, 2.0), st.floats(2.0, 40.0)))
+    t = draw(st.floats(-0.5, 1.5))
+    e = np.array([np.cos(ang), np.sin(ang)])
+    p0 = np.array([x0, y0])
+    p1 = p0 + length * e
+    p2 = p0 + t * length * e + across * np.array([-e[1], e[0]])
+    return np.concatenate([p0, p1, p2, [0.5, 0.5, 0.5]]).astype(np.float32)[None]
+
+
+@settings(max_examples=300, deadline=None, database=None, derandomize=True)
+@given(_slivers())
+def test_face_box_is_conservative(row):
+    """Every pixel that `resolve_tiles_plain` finds inside a face lies in the
+    face's box (`face_box_plain`, the kernel's `face_box`), slivers too."""
+    from chip_smoke import mesh_resolve_layout
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    args = mesh_resolve_layout(row, 64, 64, 1 << 10, "cpu")
+    _, face_id, _ = raster.resolve_tiles_plain(*args)
+    box = raster.face_box_plain(torch.tensor(row))[0]
+    ys, xs = torch.nonzero(face_id == 0, as_tuple=True)
+    inside = ((xs >= box[0]) & (xs <= box[1]) & (ys >= box[2]) & (ys <= box[3]))
+    assert bool(inside.all()), (row, box, xs[~inside][:4], ys[~inside][:4])
+
+
+def test_face_box_is_tight_and_infinite_where_unbounded():
+    """A well-shaped face's box is its bounding box widened by under 0.01 px;
+    degenerate and non-finite faces get an infinite box, a 2e-3-px sliver
+    8,000 px long one wider than the image by far."""
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    rows = torch.tensor([
+        [10.0, 20.0, 40.0, 22.0, 25.0, 50.0, 0.5, 0.5, 0.5],
+        [10.0, 20.0, 20.0, 30.0, 30.0, 40.0, 0.5, 0.5, 0.5],  # d == 0
+        [10.0, float("nan"), 20.0, 30.0, 30.0, 41.0, 0.5, 0.5, 0.5],
+        [0.0, 0.0, 4000.0, 1.0, 8000.0, 2.0 + 1e-3, 0.5, 0.5, 0.5],
+    ])
+    box = raster.face_box_plain(rows)
+    want = torch.tensor([10.0, 40.0, 20.0, 50.0])
+    assert bool(((box[0] - want).abs() < 0.01).all())
+    assert bool((box[0, [0, 2]] <= want[[0, 2]]).all())
+    assert bool((box[0, [1, 3]] >= want[[1, 3]]).all())
+    inf = torch.tensor([-np.inf, np.inf, -np.inf, np.inf])
+    for i in (1, 2):
+        assert torch.equal(box[i], inf), i
+    assert float(box[3, 0]) < -1e5 and float(box[3, 1]) > 1e5
+
+
+def test_binned_rows_match_the_mesh_binning():
+    """`chip_smoke.mesh_resolve_layout` bins screen rows as `tile_face_lists`
+    bins a mesh: the same pair lists for the sphere case's rows."""
+    from chip_smoke import mesh_resolve_layout
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    verts, faces, _, cam, _ = _case("sphere_80x48")
+    camera = torch_camera(cam["vm"], 0.8, 0.8, 80, 48)
+    cfg = raster.MeshRasterConfig(pair_budget=BUDGET)
+    _, _, args = raster.tile_face_lists(
+        torch.tensor(verts), torch.tensor(faces, dtype=torch.int32), camera, cfg)
+    again = mesh_resolve_layout(args[0], 80, 48, BUDGET, "cpu")
+    for a, b in zip(args[1:4], again[1:4]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_resolve_kernel_matches_plain_on_slivers_and_ties(cuda_device):
+    """K5 bit-equal to its plain version on slivers listed twice at 500×300:
+    the cull box, ties (the first copy wins) and a ragged edge."""
+    from chip_smoke import mesh_resolve_layout, sliver_rows
+    from youreditableavatar_tpu_torch.ops.mesh_raster import raster
+
+    rows = sliver_rows(n=1500)
+    args = mesh_resolve_layout(rows, 500, 300, 1 << 20, cuda_device)
+    got = raster.resolve_tiles(*args)
+    for a, b in zip(got, raster.resolve_tiles_plain(*args)):
+        assert torch.equal(a, b)
+    assert int(got[1].max()) < len(rows) // 2

@@ -34,6 +34,8 @@ from youreditableavatar_tpu_torch.ops.mesh_raster import (
 from youreditableavatar_tpu_torch.ops.mesh_raster.interpolate import (
     silhouette_alpha,
 )
+from youreditableavatar_tpu_torch.ops.padded_gather import (
+    gather_rows, scatter_add_rows)
 
 
 def render_geometry_maps(
@@ -103,8 +105,11 @@ def render_part_maps(
 def normal_consistency(mesh: MTOutput) -> Tensor:
     """Mean (1 − cos) between unit normals of edge-adjacent faces."""
     f = mesh.faces.long()
-    # index_select: padded faces gather row 0 (an index_add_ backward).
-    p0, p1, p2 = (mesh.verts.index_select(0, f[:, i]) for i in range(3))
+    # Padded faces gather row 0; their normals are zeroed below, so their
+    # gradient rows are zero and gather_rows drops them.
+    pad = ~mesh.faces_valid
+    p0, p1, p2 = (gather_rows(mesh.verts, f[:, i], pad=pad, pad_row=None)
+                  for i in range(3))
     n = torch.linalg.cross(p1 - p0, p2 - p0)
     n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-20)
     n = torch.where(mesh.faces_valid[:, None], n, torch.zeros_like(n))
@@ -119,14 +124,13 @@ def normal_consistency(mesh: MTOutput) -> Tensor:
     budget = f.shape[0] * 2  # interior edges of a closed mesh: E = 3F/2
     slot, _, _, _ = unique_edge_slots(lo, hi, valid3, budget)
 
-    tgt = torch.clamp(slot.long(), max=budget).reshape(-1)
-    sums = torch.zeros((budget + 1, 3), dtype=n.dtype, device=n.device)
-    sums = sums.index_add(0, tgt, n[:, None, :].expand(lo.shape + (3,))
-                          .reshape(-1, 3))
-    counts = torch.zeros(budget + 1, dtype=n.dtype, device=n.device)
-    counts = counts.index_add(0, tgt, valid3.reshape(-1).to(n.dtype))
-    sums = sums[:budget]
-    counts = counts[:budget]
+    # Invalid edge slots (≥ budget) are the scatters' padding: spread over
+    # dump rows and dropped.
+    tgt = slot.long().reshape(-1)
+    off = tgt >= budget
+    sums = scatter_add_rows(budget, tgt, n[:, None, :].expand(lo.shape + (3,))
+                            .reshape(-1, 3), off)
+    counts = scatter_add_rows(budget, tgt, valid3.reshape(-1).to(n.dtype), off)
 
     interior = counts == 2.0
     sq = torch.sum(sums * sums, dim=-1)

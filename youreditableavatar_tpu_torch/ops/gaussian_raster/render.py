@@ -44,6 +44,7 @@ from youreditableavatar_tpu_torch.ops.gaussian_raster.preprocess import (
     preprocess_gaussians,
 )
 from youreditableavatar_tpu_torch.ops.gaussian_raster.types import RasterCamera
+from youreditableavatar_tpu_torch.ops.padded_gather import gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,11 +116,11 @@ def build_pallas_pair_layout(proj, binning, ntx: int, nty: int,
 def gather_pair_rows(fields_ext: Tensor, pg_padded: Tensor) -> Tensor:
     """(P_pad, 16) pair rows `fields_ext[pg_padded]`, padding slots row 0.
 
-    `index_select`, not indexing: every padding slot points at row 0, and
-    autograd of `x[idx]` is PyTorch's sort-based index backward, which
-    walks each run of equal indices serially; `index_select`'s backward is
-    `index_add_` (atomics on the card)."""
-    return fields_ext.index_select(0, pg_padded)
+    `index_select`'s bits through `gather_rows`: every padding slot reads
+    row 0, the zero row whose gradient no caller keeps, so the backward
+    spreads those slots over dump rows and drops them instead of adding
+    them all onto row 0."""
+    return gather_rows(fields_ext, pg_padded, pad=pg_padded == 0, pad_row=None)
 
 
 def build_pallas_pair_rows(proj, binning, ntx: int, nty: int, pair_budget: int):

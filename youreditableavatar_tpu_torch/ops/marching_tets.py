@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from youreditableavatar_tpu_torch.ops.padded_gather import gather_rows
 from youreditableavatar_tpu_torch.ops.segments import range_owner
 
 # Standard marching-tetrahedra tables. Occupancy code bit i = (sdf[v_i] > 0).
@@ -248,20 +249,20 @@ def marching_tets(
     verts_valid = torch.arange(max_verts, device=dev) < torch.clamp(
         num_verts, max=max_verts)
 
-    # index_select, not indexing: padded vertex slots gather row 0, and
-    # autograd of `x[idx]` walks each run of equal indices serially, where
-    # index_select's backward is index_add_.
+    # gather_rows, not indexing: padded vertex slots gather row 0, and
+    # autograd of `x[idx]` walks each run of equal indices serially;
+    # gather_rows' backward spreads them off row 0 (ops/padded_gather.py).
     va_l, vb_l = va.long(), vb.long()
-    sa = sdf.index_select(0, va_l)
-    sb = sdf.index_select(0, vb_l)
+    sa = gather_rows(sdf, va_l)
+    sb = gather_rows(sdf, vb_l)
     denom = sb - sa
     safe = torch.abs(denom) >= 1e-10
     denom = torch.where(safe, denom, torch.ones_like(denom))
     # Weight of endpoint a; 0.5 on degenerate/invalid edges keeps the
     # division's gradient finite (0·inf = NaN otherwise).
     t = torch.where(safe & verts_valid, sb / denom, torch.full_like(sb, 0.5))
-    verts = (pos.index_select(0, va_l) * t[:, None]
-             + pos.index_select(0, vb_l) * (1.0 - t[:, None]))
+    verts = (gather_rows(pos, va_l) * t[:, None]
+             + gather_rows(pos, vb_l) * (1.0 - t[:, None]))
     verts = torch.where(verts_valid[:, None], verts, torch.zeros_like(verts))
 
     local = _table(TRIANGLE_TABLE, dev)[code]  # (Nt, 6) local edge ids (−1 pad)
@@ -416,9 +417,9 @@ def subdivide_tets(
         num_mid, max=max_mid)
 
     ma, mb = ma.long(), mb.long()
-    # index_select: padded midpoint slots gather row 0 (see marching_tets).
-    mid_pos = 0.5 * (pos.index_select(0, ma) + pos.index_select(0, mb))
-    mid_sdf = 0.5 * (sdf.index_select(0, ma) + sdf.index_select(0, mb))
+    # gather_rows: padded midpoint slots gather row 0 (see marching_tets).
+    mid_pos = 0.5 * (gather_rows(pos, ma) + gather_rows(pos, mb))
+    mid_sdf = 0.5 * (gather_rows(sdf, ma) + gather_rows(sdf, mb))
     new_pos = torch.cat([pos, torch.where(mid_valid[:, None], mid_pos,
                                           torch.zeros_like(mid_pos))])
     new_sdf = torch.cat([sdf, torch.where(mid_valid, mid_sdf,

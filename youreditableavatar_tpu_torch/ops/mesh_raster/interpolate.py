@@ -17,6 +17,8 @@ import torch
 from torch import Tensor
 
 from youreditableavatar_tpu_torch.ops.mesh_raster.raster import RasterOutput
+from youreditableavatar_tpu_torch.ops.padded_gather import (
+    gather_rows, scatter_add_rows)
 
 
 def _pixel_grid(height: int, width: int, device) -> Tuple[Tensor, Tensor]:
@@ -25,21 +27,19 @@ def _pixel_grid(height: int, width: int, device) -> Tuple[Tensor, Tensor]:
     return px.expand(height, width), py.expand(height, width)
 
 
-def gather_rows(x: Tensor, idx: Tensor) -> Tensor:
-    """`x[idx]` for an integer `idx` of any shape, through `index_select`.
-
-    Background pixels and padded faces send long runs of equal indices
-    (row 0); autograd of `x[idx]` is PyTorch's sort-based index backward,
-    which walks each run serially, while `index_select`'s backward is
-    `index_add_` (atomics on the card). The values are the same bits."""
-    return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
-
-
 def _visible_corners(out: RasterOutput, faces: Tensor):
-    """Vertex ids (H, W, 3) of each pixel's visible face (face 0 on the
-    background) and their screen positions."""
-    tri = gather_rows(faces.long(), torch.clamp(out.face_id, min=0).long())
-    return tri, [gather_rows(out.verts_screen, tri[..., i]) for i in range(3)]
+    """`corner(x, i)`: rows of the per-vertex `x` at the i-th corner of
+    each pixel's visible face, (H, W, ...). Background pixels read face 0's
+    corners; they are the gathers' padding slots."""
+    f = faces.long()
+    background = out.face_id < 0
+    tri = f.index_select(0, torch.clamp(out.face_id, min=0).reshape(-1).long())
+
+    def corner(x: Tensor, i: int) -> Tensor:
+        return gather_rows(x, tri[:, i].reshape(out.face_id.shape),
+                           pad=background, pad_row=f[0, i])
+
+    return corner
 
 
 def recompute_barycentrics(
@@ -52,7 +52,8 @@ def recompute_barycentrics(
       bary_persp: (H, W, 3) perspective-corrected (for world-space attrs).
     """
     h, w = out.face_id.shape
-    tri, (p0, p1, p2) = _visible_corners(out, faces)
+    corner = _visible_corners(out, faces)
+    p0, p1, p2 = (corner(out.verts_screen, i) for i in range(3))
     px, py = _pixel_grid(h, w, out.face_id.device)
 
     d = (p1[..., 0] - p0[..., 0]) * (p2[..., 1] - p0[..., 1]) - (
@@ -70,8 +71,7 @@ def recompute_barycentrics(
     l0 = 1.0 - l1 - l2
     bary_affine = torch.stack([l0, l1, l2], dim=-1)
 
-    iw0, iw1, iw2 = (gather_rows(out.verts_zw, tri[..., i])[..., 1]
-                     for i in range(3))
+    iw0, iw1, iw2 = (corner(out.verts_zw, i)[..., 1] for i in range(3))
     wsum = l0 * iw0 + l1 * iw1 + l2 * iw2
     wsum = torch.where(torch.abs(wsum) > 1e-12, wsum, torch.ones_like(wsum))
     bary_persp = torch.stack(
@@ -99,8 +99,8 @@ def interpolate_attributes(
     """
     bary_a, bary_p = recompute_barycentrics(out, faces)
     bary = bary_p if perspective else bary_a
-    tri, _ = _visible_corners(out, faces)
-    a0, a1, a2 = (gather_rows(attrs, tri[..., i]) for i in range(3))
+    corner = _visible_corners(out, faces)
+    a0, a1, a2 = (corner(attrs, i) for i in range(3))
     img = a0 * bary[..., 0:1] + a1 * bary[..., 1:2] + a2 * bary[..., 2:3]
     mask = (out.face_id >= 0)[..., None]
     bg = torch.as_tensor(background, dtype=img.dtype, device=img.device)
@@ -119,7 +119,8 @@ def silhouette_alpha(
     losses need.
     """
     h, w = out.face_id.shape
-    _, (p0, p1, p2) = _visible_corners(out, faces)
+    corner = _visible_corners(out, faces)
+    p0, p1, p2 = (corner(out.verts_screen, i) for i in range(3))
     px, py = _pixel_grid(h, w, out.face_id.device)
 
     def edge_dist(a, b):
@@ -145,14 +146,20 @@ def silhouette_alpha(
 def compute_vertex_normals(
     verts: Tensor, faces: Tensor, faces_valid: Optional[Tensor] = None
 ) -> Tensor:
-    """Area-weighted vertex normals via scatter-add (`index_add_`)."""
+    """Area-weighted vertex normals via scatter-add (`index_add_`).
+
+    Padded faces (`~faces_valid`) are the padding slots of the gathers and
+    the scatter: their normals are replaced by zeros, so their gradient
+    rows are zero and their adds are dropped."""
     f = faces.long()
-    p0, p1, p2 = (verts.index_select(0, f[:, i]) for i in range(3))
+    pad = None if faces_valid is None else ~faces_valid
+    p0, p1, p2 = (gather_rows(verts, f[:, i], pad=pad,
+                              pad_row=0 if pad is None else None)
+                  for i in range(3))
     fn = torch.linalg.cross(p1 - p0, p2 - p0)  # area-weighted
     if faces_valid is not None:
         fn = torch.where(faces_valid[:, None], fn, torch.zeros_like(fn))
-    vn = torch.zeros_like(verts)
-    for i in range(3):
-        vn = vn.index_add(0, f[:, i], fn)
+    vn = scatter_add_rows(verts.shape[0], f.T.reshape(-1), fn.repeat(3, 1),
+                          None if pad is None else pad.repeat(3))
     # rsqrt(Σx²+ε) is gradient-safe at 0 (‖·‖ has NaN grad there).
     return vn * torch.rsqrt(torch.sum(vn * vn, dim=-1, keepdim=True) + 1e-20)

@@ -9,9 +9,11 @@ depth. All outputs are non-differentiable by construction (visibility is a
 discrete argmin); `interpolate.py` re-attaches gradients.
 
 The resolve is `resolve_tiles`: CUDA tensors launch `csrc/mesh_resolve.cu`
-(one CTA per tile, the running nearest face in registers); CPU tensors go
-to `resolve_tiles_plain`, a chunked scan that repeats the same f32
-operations in the same order, so the two agree bit for bit. Like the
+(four CTAs per tile, one per 16×16 quarter; each warp an 8×4 pixel block
+that evaluates only the faces whose conservative box, `face_box_plain`,
+meets it; the running nearest face in registers); CPU tensors go to
+`resolve_tiles_plain`, a chunked scan that repeats the same f32 operations
+in the same order, so the two agree bit for bit. Like the
 Pallas path of the JAX package — and unlike its `"xla"` fallback — neither
 caps a tile's face list, so `MeshRasterConfig` carries no `tile_capacity`,
 `backend` or `pallas_interpret`.
@@ -38,6 +40,7 @@ ROW_FLOATS = 9
 CHUNK = 128  # pairs per step of the plain scan (and per staging round of K5)
 Z_FAR = 3.4e38  # empty-pixel depth sentinel
 KERNEL_TILE = 32  # the CUDA kernel's tile edge
+BOX_U = 2.0 ** -24  # f32 unit roundoff, in `face_box_plain`'s bound
 # Tiles scanned together by the plain version: bounds its (tiles, CHUNK,
 # pixels) temporaries to 32 MiB each.
 PLAIN_TILE_GROUP = 64
@@ -102,31 +105,34 @@ def _face_fields(
     else:
         ok = ok & (torch.abs(area) > 1e-12)
 
-    ts = cfg.tile_size
-    ntx = -(-camera.width // ts)
-    nty = -(-camera.height // ts)
-    xs = torch.stack([p0[:, 0], p1[:, 0], p2[:, 0]])
-    ys = torch.stack([p0[:, 1], p1[:, 1], p2[:, 1]])
+    rows = torch.stack(
+        [p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1],
+         z[f[:, 0]], z[f[:, 1]], z[f[:, 2]]], dim=1,
+    ).contiguous()
+    return (rows,) + bin_face_rows(rows, ok, camera.width, camera.height,
+                                   cfg.tile_size)
+
+
+def bin_face_rows(rows: Tensor, ok: Tensor, width: int, height: int, ts: int):
+    """Tiles touched (F,) by each face row kept by `ok` (its bounding box's
+    tile rectangle, nothing for a face off screen) and the rectangles:
+    (tiles, rect, ntx, nty)."""
+    ntx = -(-width // ts)
+    nty = -(-height // ts)
+    xs = rows[:, 0:6:2].T
+    ys = rows[:, 1:6:2].T
     xmin, xmax = xs.min(0).values, xs.max(0).values
     ymin, ymax = ys.min(0).values, ys.max(0).values
     rect_min_x = torch.clamp(torch.floor(xmin / ts), 0, ntx).to(torch.int32)
     rect_min_y = torch.clamp(torch.floor(ymin / ts), 0, nty).to(torch.int32)
     rect_max_x = torch.clamp(torch.floor(xmax / ts) + 1, 0, ntx).to(torch.int32)
     rect_max_y = torch.clamp(torch.floor(ymax / ts) + 1, 0, nty).to(torch.int32)
-    offscreen = (xmax < 0) | (xmin >= camera.width) | (ymax < 0) | (
-        ymin >= camera.height
-    )
+    offscreen = (xmax < 0) | (xmin >= width) | (ymax < 0) | (ymin >= height)
     ok = ok & (~offscreen)
     w_t = torch.clamp(rect_max_x - rect_min_x, min=0)
     h_t = torch.clamp(rect_max_y - rect_min_y, min=0)
     tiles = torch.where(ok, w_t * h_t, torch.zeros_like(w_t))
-
-    rows = torch.stack(
-        [p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1],
-         z[f[:, 0]], z[f[:, 1]], z[f[:, 2]]], dim=1,
-    ).contiguous()
-    rect = (rect_min_x, rect_min_y, rect_max_x)
-    return rows, tiles, rect, ntx, nty
+    return tiles, (rect_min_x, rect_min_y, rect_max_x), ntx, nty
 
 
 def _expand_pairs(tiles, rect, ntx, nty, pair_budget):
@@ -164,6 +170,32 @@ def _untile(x: Tensor, ntx: int, nty: int, ts: int, width: int, height: int):
     tail = x.shape[2:]
     x = x.reshape(nty, ntx, ts, ts, *tail).transpose(1, 2)
     return x.reshape(nty * ts, ntx * ts, *tail)[:height, :width]
+
+
+def face_box_plain(rows: Tensor) -> Tensor:
+    """(F, 4) f32 pixel boxes (x_lo, x_hi, y_lo, y_hi) of (F, 9) face rows:
+    no pixel of a tile that lists the face passes its f32 inside test
+    outside the box. The kernel's `face_box`, line for line, in float64
+    (d, the signed double area, in f32 as the inside test computes it);
+    ±inf (no cull) where the kernel evaluates every pixel."""
+    x0, y0, x1, y1, x2, y2 = (rows[:, i] for i in range(6))
+    d = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    xs = torch.stack([x0, x1, x2]).double()
+    ys = torch.stack([y0, y1, y2]).double()
+    xl, xh = xs.min(0).values, xs.max(0).values
+    yl, yh = ys.min(0).values, ys.max(0).values
+    sx, sy = xh - xl, yh - yl
+    ad = d.double().abs()
+    r = ((sx + 32.0) * sy + (sy + 32.0) * sx) / ad
+    ed = 4.01 * BOX_U * 2.0 * sx * sy / ad
+    e12 = r * (6.02 * BOX_U + 2.0 * ed)
+    e = 2.0 * e12 + 2.0 * BOX_U * (1.0 + 3.0 * r)
+    mx = 4.0 * e * sx + 1e-6 * (xl.abs() + xh.abs()) + 1e-6
+    my = 4.0 * e * sy + 1e-6 * (yl.abs() + yh.abs()) + 1e-6
+    box = torch.stack([xl - mx, xh + mx, yl - my, yh + my], dim=1).float()
+    cull = (ad > 0.0) & (sx + sy < 1e30) & (ed < 0.5)
+    inf = torch.tensor([-float("inf"), float("inf")] * 2, device=rows.device)
+    return torch.where(cull[:, None], box, inf)
 
 
 def resolve_tiles_plain(
