@@ -113,6 +113,7 @@ SCATTER_POINTS = 65_536  # points of the K4 check: one edit-step requery
 INIT_SDF_STEPS, INIT_NORMAL_STEPS = 200, 10
 EDIT_WARM, EDIT_TIMED, EDIT_STARTS = 6, 30, (0, 8000)
 SPATIAL_GRID = 64  # tet-grid resolution of both spatial stages
+SPATIAL_WATCH = ("index", "indexfunc", "scatter_kernel")
 K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 # The sharded phase: timed steps, the band counts checked in one process,
 # and the kernels its step launches once per view.
@@ -829,21 +830,63 @@ def scatter_points(shape: str, gen) -> torch.Tensor:
     return x[torch.argsort(key, stable=True)]
 
 
+def k4_repeats(idx: torch.Tensor, table_size: int):
+    """K4's repeat test on its (L, R) ids, as the kernel sees them (rows
+    level-major, 32 to a warp): the share of warps that aggregate (some
+    valid row in lanes 0–23 equals the one eight lanes on) and the share
+    of all valid rows' atomics that their aggregation saves."""
+    levels = idx.shape[0]
+    ok = ((idx >= 0) & (idx < table_size)).reshape(-1)
+    key = (idx.to(torch.int64) + torch.arange(levels, device=idx.device)[:, None]
+           * (table_size + 1)).reshape(-1)
+    n = key.numel()
+    tail = -(-n // 32) * 32 - n
+    # Invalid rows (and the last warp's idle lanes) get keys of their own.
+    alone = -1 - torch.arange(n + tail, device=idx.device)
+    key = torch.where(torch.cat([ok, ok.new_zeros(tail)]),
+                      torch.cat([key, key.new_zeros(tail)]), alone).reshape(-1, 32)
+    ok = key >= 0
+    fires = ((key[:, :24] == key[:, 8:]) & ok[:, :24]).any(1)
+    srt = key.sort(1).values
+    distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(1) - (~ok).sum(1)
+    saved = (ok.sum(1) - distinct)[fires].sum()
+    return float(fires.float().mean()), float(saved / ok.sum().clamp(min=1))
+
+
+def k4_traffic(step, what):
+    """Run `step` once with K4's inputs read on the way (`k4_repeats` of
+    every launch the encoding's backward makes), outside any timed or
+    profiled window, and print them."""
+    from youreditableavatar_tpu_torch.ops import hashgrid as hg
+
+    real, seen = hg.hash_scatter_add, []
+
+    def spy(idx, v0, v1, table_size):
+        seen.append((tuple(idx.shape), *k4_repeats(idx, table_size)))
+        return real(idx, v0, v1, table_size)
+
+    hg.hash_scatter_add = spy
+    try:
+        step()
+    finally:
+        hg.hash_scatter_add = real
+    print(f"  K4 traffic, {what}: per launch (levels × rows; share of warps "
+          f"that aggregate; share of atomics saved) " + "; ".join(
+              f"{s[0]}×{s[1]} {w:.3f} {v:.3f}" for s, w, v in seen))
+
+
 def check_hash_scatter(dev):
     """K4 against its plain version: the corner rows of 65,536 points (a
     uniform and a sphere-shell shape) through the production
-    HashGridConfig's 16 levels, each level's extent passed as the spatial
-    stage passes it (levels 0–1 privatized), normal values, one row in 16
-    the padding sentinel. The plain version sums sequentially on the CPU
-    copy. Then the time split: the zero fill, dense levels 0–4 and hashed
-    levels 5–15, each into a zeroed table, and the generic path (no
-    extents) beside the main path's."""
+    HashGridConfig's 16 levels, normal values, one row in 16 the padding
+    sentinel. The plain version sums sequentially on the CPU copy. Then
+    the share of warps that aggregate, and the time split: the zero fill,
+    dense levels 0–4 and hashed levels 5–15, each into a zeroed table."""
     from youreditableavatar_tpu_torch.ops import hashgrid as hg
     from youreditableavatar_tpu_torch.ops import hashgrid_cuda as hc
 
     cfg = hg.HashGridConfig()
     t = cfg.table_size
-    extents = hg.level_extents(cfg)
     dense = sum((r + 1) ** 3 <= t for r in cfg.level_resolutions())
     gen = torch.Generator().manual_seed(4)
     result = None
@@ -859,49 +902,42 @@ def check_hash_scatter(dev):
         ref = hc.hash_scatter_add_plain(idx, v0, v1, t)
         cpu_ms = (time.perf_counter() - t0) * 1e3
         idx_d, v0_d, v1_d = (a.to(dev) for a in (idx, v0, v1))
-        worst, err = 0.0, 0.0
-        for ext in (extents, None):
-            out = hc.hash_scatter_add(idx_d, v0_d, v1_d, t, extents=ext).cpu()
-            errs = [(float((out[l] - ref[l]).abs().max()),
-                     float(ref[l].abs().max())) for l in range(levels)]
-            w = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
-            print(f"  hash_scatter, {shape} points, "
-                  f"{'extents' if ext else 'generic'}: {levels} levels "
-                  f"({dense} dense, {bin(hc.aggregated_levels(ext, t)).count('1')} warp-aggregated) × "
-                  f"{rows} rows into {levels} × {t} × 2; max |card - cpu "
-                  f"plain| per level " + ", ".join(f"{e:.3g}" for e, _ in errs)
-                  + f"; worst level at {w:.3f} of its tolerance "
-                  f"({SCATTER_RTOL_OF_MAX}·max|plain|); cpu plain {cpu_ms:.1f} ms")
-            worst, err = max(worst, w), max(err, max(e for e, _ in errs))
+        out = hc.hash_scatter_add(idx_d, v0_d, v1_d, t).cpu()
+        errs = [(float((out[l] - ref[l]).abs().max()), float(ref[l].abs().max()))
+                for l in range(levels)]
+        worst = max(e / (SCATTER_RTOL_OF_MAX * m) for e, m in errs)
+        err = max(e for e, _ in errs)
+        agg = [k4_repeats(idx_d[lo:hi], t) for lo, hi in ((0, dense), (dense, levels))]
+        print(f"  hash_scatter, {shape} points: {levels} levels ({dense} "
+              f"dense) × {rows} rows into {levels} × {t} × 2; max |card - cpu "
+              f"plain| per level " + ", ".join(f"{e:.3g}" for e, _ in errs)
+              + f"; worst level at {worst:.3f} of its tolerance "
+              f"({SCATTER_RTOL_OF_MAX}·max|plain|); cpu plain {cpu_ms:.1f} ms; "
+              f"warps that aggregate (atomics saved): dense levels "
+              f"{agg[0][0]:.3f} ({agg[0][1]:.3f}), hashed {agg[1][0]:.3f} "
+              f"({agg[1][1]:.3f})")
         if not worst <= 1.0:
             raise AssertionError("hash_scatter kernel differs from its plain version")
         uniq = [int(torch.unique(idx[l][idx[l] < t]).numel()) for l in range(levels)]
 
-        def part(lo, hi, ext):
+        def part(lo, hi):
             table = torch.zeros((hi - lo, t, 2), device=dev)
             return lambda: hc._scatter_into(
-                idx_d[lo:hi], v0_d[lo:hi], v1_d[lo:hi], t,
-                None if ext is None else ext[lo:hi], table)
+                idx_d[lo:hi], v0_d[lo:hi], v1_d[lo:hi], t, table)
 
         def med(fn, n=30):
             return statistics.median(each_device_ms(fn, n))
 
-        times = each_device_ms(
-            lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t, extents=extents), 30)
-        split = dict(
-            zero=med(lambda: torch.zeros((levels, t, 2), device=dev)),
-            dense=med(part(0, dense, extents)),
-            hashed=med(part(dense, levels, extents)),
-            generic_dense=med(part(0, dense, None)),
-            generic=med(lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t)))
+        times = each_device_ms(lambda: hc.hash_scatter_add(idx_d, v0_d, v1_d, t), 30)
+        split = dict(zero=med(lambda: torch.zeros((levels, t, 2), device=dev)),
+                     dense=med(part(0, dense)), hashed=med(part(dense, levels)))
         print(f"  hash_scatter, {shape} points: distinct rows per level "
               f"{uniq}; median {statistics.median(times):.4f} ms over 30 "
               f"launches (min {min(times):.4f}, max {max(times):.4f}), "
               f"zeroing included; split (medians): zero fill "
               f"{split['zero']:.4f} ms, dense levels 0–{dense - 1} "
-              f"{split['dense']:.4f} ms (generic path {split['generic_dense']:.4f}), "
-              f"hashed levels {dense}–{levels - 1} {split['hashed']:.4f} ms; "
-              f"the generic path whole {split['generic']:.4f} ms")
+              f"{split['dense']:.4f} ms, hashed levels {dense}–{levels - 1} "
+              f"{split['hashed']:.4f} ms")
         if result is None:  # the check's shape: uniform points
             level = torch.arange(levels, device=dev)[:, None]
             flat = torch.where(idx_d < t, level * t + idx_d.long(),
@@ -1136,12 +1172,12 @@ def phase_render(dev, kernels):
     return median
 
 
-def profile_window(step, iters, step_ms, watch=None):
+def profile_window(step, iters, step_ms, watch=()):
     """Device time by kernel over a short steady window (torch.profiler),
     and the device's busy share of the window's wall time and of the
-    unprofiled median step `step_ms` (the profiler slows the host). With
-    `watch`, also every kernel whose name holds it, and their sum, and the
-    same for index_add_'s kernels ("indexFunc")."""
+    unprofiled median step `step_ms` (the profiler slows the host). For
+    each name in `watch`, also every kernel whose name holds it, and their
+    sum ("indexfunc": index_add_'s kernels; "scatter_kernel": K4's)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1170,8 +1206,7 @@ def profile_window(step, iters, step_ms, watch=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / iters / 1e3:8.3f} ms "
               f"{e.count / iters:5.0f}× {e.key[:90]}")
-    for name in (watch, "indexfunc") if watch else ():
-        # "indexFunc…" kernels are index_add_'s (index_select's backward).
+    for name in watch:
         hit = [e for e in kernels if name in e.key.lower()]
         print(f"  kernels named '{name}': "
               f"{sum(e.self_device_time_total for e in hit) / iters / 1e3:.3f}"
@@ -1561,7 +1596,15 @@ def phase_spatial(dev, kernels):
         cfg, sdf_iters=1, normal_iters=3, sdf_pool_size=200_000), device=dev)
     print("  shape init, 1 SDF + 3 normal steps:")
     profile_window(lambda: short.run(body, faces, seed=1), iters=1,
-                   step_ms=sdf_ms + 3 * normal_ms, watch="index")
+                   step_ms=sdf_ms + 3 * normal_ms, watch=SPATIAL_WATCH)
+    short_sdf = ShapeInitializer(field, geometry, dataclasses.replace(
+        short.cfg, sdf_iters=5, normal_iters=0), device=dev)
+    print("  shape init, 5 SDF steps:")
+    profile_window(lambda: short_sdf.run(body, faces, seed=1), iters=1,
+                   step_ms=5 * sdf_ms, watch=SPATIAL_WATCH)
+    k4_traffic(lambda: ShapeInitializer(field, geometry, dataclasses.replace(
+        short.cfg, normal_iters=1), device=dev).run(body, faces, seed=1),
+        "shape init, 1 SDF step then 1 normal step")
 
     # ---- SDS geometry edit (stage 1), bench_spatial's operating point ----
     field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.45))
@@ -1622,7 +1665,8 @@ def phase_spatial(dev, kernels):
         if not pairs < mcfg.pair_budget:
             raise AssertionError("the mesh raster's pair budget is too small")
         profile_window(lambda: trainer.train_step(seed=1), iters=5,
-                       step_ms=median, watch="index")
+                       step_ms=median, watch=SPATIAL_WATCH)
+        k4_traffic(lambda: trainer.train_step(seed=1), f"edit step from {start}")
     moved = float((trainer.params.grid.detach()
                    - trainer.frozen_params.grid).abs().sum())
     print(f"  parameters moved: Σ|Δ table| = {moved:.6g}; peak memory "

@@ -230,71 +230,63 @@ def test_hash_scatter_kernel_matches_plain_on_card(cuda_device):
         assert float((out[lv] - ref[lv]).abs().max()) <= tol
 
 
-class TestExtents:
-    def test_extents_bound_every_corner_id(self):
-        """The per-level extents passed to K4 bound every corner id that
-        `_level_corners` produces for the production config: random points,
-        the cube's corners and faces (x = 0 and 1 clip to the last cell)."""
-        cfg = thg.HashGridConfig()
-        ext = thg.level_extents(cfg)
-        rng = np.random.default_rng(11)
-        pts = np.concatenate([rng.uniform(0, 1, (20_000, 3)),
-                              np.array(np.meshgrid([0, 1], [0, 1], [0, 1]))
-                              .reshape(3, -1).T,
-                              rng.integers(0, 2, (500, 3)) * 1.0]).astype(np.float32)
-        x = torch.tensor(pts)
-        for lvl, res in enumerate(cfg.level_resolutions()):
-            idx = thg._level_corners(x, res, cfg.table_size)[0]
-            assert int(idx.min()) >= 0 and int(idx.max()) < ext[lvl], lvl
-            if ext[lvl] < cfg.table_size:  # dense: the last id is reached
-                assert int(idx.max()) == ext[lvl] - 1, lvl
-        assert ext[:5] == [4913, 12167, 29791, 79507, 205379]
-        assert ext[5:] == [cfg.table_size] * 11
-
-    def test_aggregated_levels(self):
-        cfg = thg.HashGridConfig()
-        t = cfg.table_size
-        assert hashgrid_cuda.aggregated_levels(None, t) == 0
-        assert hashgrid_cuda.aggregated_levels(thg.level_extents(cfg), t) == 0b11111
-        assert hashgrid_cuda.aggregated_levels([t] * 70, t) == 0
-        assert hashgrid_cuda.aggregated_levels([1] * 70, t) == (1 << 64) - 1
-
-    def test_extents_keep_the_plain_result(self):
-        """On CPU tensors `extents` changes nothing; a wrong length raises."""
+class TestScatterInputs:
+    def test_plain_drops_ids_out_of_range(self):
+        """Ids below 0 or at and past the table size are dropped, as the
+        kernel's unsigned range test drops them."""
         rng = np.random.default_rng(12)
-        idx = torch.tensor(rng.integers(0, 129, (3, 500)).astype(np.int32))
+        idx = torch.tensor(rng.integers(-3, 140, (3, 500)).astype(np.int32))
         v0, v1 = (torch.tensor(rng.normal(size=(3, 500)).astype(np.float32))
                   for _ in range(2))
-        want = hashgrid_cuda.hash_scatter_add_plain(idx, v0, v1, 128)
-        got = hashgrid_cuda.hash_scatter_add(idx, v0, v1, 128, extents=[64, 128, 128])
+        got = hashgrid_cuda.hash_scatter_add(idx, v0, v1, 128)
+        keep = (idx >= 0) & (idx < 128)
+        want = torch.zeros(3, 128, 2)
+        for lv in range(3):
+            k = keep[lv]
+            want[lv].index_add_(0, idx[lv][k].long(),
+                                torch.stack([v0[lv][k], v1[lv][k]], -1))
         assert torch.equal(got, want)
-        with pytest.raises(ValueError):
-            hashgrid_cuda.hash_scatter_add(idx, v0, v1, 128, extents=[64, 128])
+        assert (~keep).any() and (idx < 0).any()
 
-    def test_table_gradient_passes_the_extents(self, monkeypatch):
-        """The encoding's backward hands K4 each active level's extent."""
-        cfg = thg.HashGridConfig(n_levels=4, log2_hashmap_size=12,
-                                 base_resolution=4, per_level_scale=2.0)
-        seen = []
-        real = thg.hash_scatter_add
+    def test_plain_matches_pallas_interpret_on_repeated_rows(self):
+        """Runs of equal rows, as neighbouring points give on a coarse level
+        (the case K4 sums within a warp): the plain version against the
+        JAX kernel run interpreted."""
+        from youreditableavatar_tpu.ops.hashgrid_pallas import hash_scatter_add
 
-        def spy(*args, **kw):
-            seen.append(kw.get("extents"))
-            return real(*args, **kw)
+        rng = np.random.default_rng(13)
+        L, R, T = 2, 1024, 128
+        idx = np.repeat(rng.integers(0, 6, (L, R // 8)), 8, axis=1).astype(np.int32)
+        idx[:, ::16] = T
+        v0 = rng.normal(size=(L, R)).astype(np.float32)
+        v1 = rng.normal(size=(L, R)).astype(np.float32)
+        ref = np.asarray(hash_scatter_add(jnp.asarray(idx), jnp.asarray(v0),
+                                          jnp.asarray(v1), T))
+        out = hashgrid_cuda.hash_scatter_add(
+            torch.tensor(idx), torch.tensor(v0), torch.tensor(v1), T)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
 
-        monkeypatch.setattr(thg, "hash_scatter_add", spy)
-        params = thg.init_hashgrid_params(torch.Generator().manual_seed(0), cfg)
-        params.requires_grad_()
-        x = torch.rand((64, 3), generator=torch.Generator().manual_seed(1))
-        thg.hashgrid_encode(params, x, cfg, n_active=3).sum().backward()
-        assert seen == [thg.level_extents(cfg)[:3]]
+    def test_repeat_statistic(self):
+        """chip_smoke's reading of K4's repeat test: warps of 32 rows, lanes
+        0–23 against the lane eight on, padding rows never repeat."""
+        from chip_smoke import k4_repeats
+
+        t = 64
+        idx = torch.arange(4 * 32, dtype=torch.int32).reshape(2, 64) % t
+        assert k4_repeats(idx, t) == (0.0, 0.0)
+        idx[0, 11] = 3  # warp 0: lanes 3 and 11, one atomic saved
+        idx[1, 40], idx[1, 48] = t, t  # padding: no repeat
+        share, saved = k4_repeats(idx, t)
+        assert share == 0.25 and saved == pytest.approx(1 / 126)
+        same = torch.full((1, 40), 3, dtype=torch.int32)  # one warp and a tail
+        assert k4_repeats(same, t) == (0.5, pytest.approx(31 / 40))
 
 
 @pytest.mark.cuda
-def test_hash_scatter_kernel_clustered_with_extents_on_card(cuda_device):
-    """K4 with the production extents (dense levels warp-aggregated) on
-    points of a sphere shell in grid order, where neighbouring rows share
-    coarse corners: ≤ 1e-5 · max |plain| per level."""
+def test_hash_scatter_kernel_clustered_on_card(cuda_device):
+    """K4 on points of a sphere shell in grid order, where neighbouring
+    rows share coarse corners and warps sum their rows first: ≤ 1e-5 ·
+    max |plain| per level."""
     from chip_smoke import scatter_points
 
     cfg = thg.HashGridConfig()
@@ -307,8 +299,7 @@ def test_hash_scatter_kernel_clustered_with_extents_on_card(cuda_device):
     v0, v1 = (torch.tensor(rng.normal(size=idx.shape).astype(np.float32))
               for _ in range(2))
     out = hashgrid_cuda.hash_scatter_add(
-        *(a.to(cuda_device) for a in (idx, v0, v1)), t,
-        extents=thg.level_extents(cfg)).cpu()
+        *(a.to(cuda_device) for a in (idx, v0, v1)), t).cpu()
     ref = hashgrid_cuda.hash_scatter_add_plain(idx, v0, v1, t)
     for lv in range(cfg.n_levels):
         tol = 1e-5 * float(ref[lv].abs().max())

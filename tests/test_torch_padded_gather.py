@@ -89,6 +89,20 @@ def test_pad_mask_and_tensor_pad_row():
         pgm.gather_rows(x, idx, pad_row=None)
 
 
+@pytest.mark.parametrize("pad_row", [0, 7])
+def test_int_and_tensor_pad_row_agree(pad_row):
+    """An int pad row and the same row as a 0-d tensor: the same padding
+    slots and the same gradient, bit for bit."""
+    x, idx, g = _padded(7, m=1200, cols=(3,))
+    idx = torch.where(idx == 0, torch.full_like(idx, pad_row), idx)
+    got = [torch.autograd.grad(pgm.gather_rows(x, idx, pad_row=r), x, g)[0]
+           for r in (pad_row, torch.tensor(pad_row))]
+    assert torch.equal(got[0], got[1])
+    want = torch.autograd.grad(x.index_select(0, idx), x, g)[0]
+    torch.testing.assert_close(got[0], want, rtol=0,
+                               atol=1e-6 * float(want.abs().max()))
+
+
 def test_scatter_add_rows_drops_padding():
     rng = np.random.default_rng(5)
     idx = torch.tensor(rng.integers(0, 30, 5000))

@@ -57,7 +57,6 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_U = ctypes.c_ulonglong
 _SIGNATURES = {
     "yea_tile_histogram": [_P, _P, _I, _I, _P],
     "yea_counting_layout": [_P, _P, _P, _P, _I, _I, _P],
@@ -70,7 +69,7 @@ _SIGNATURES = {
     "yea_composite_backward_pairs": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _U, _P, _P],
+    "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
 }
 
 _lock = threading.Lock()

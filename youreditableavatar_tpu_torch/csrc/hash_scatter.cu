@@ -21,17 +21,15 @@
 // 0–4 0.046 ms (0.082 on points of a sphere shell in grid order, level 0
 // alone 0.056), hashed levels 5–15 0.091 ms. One thread a row, as many
 // CTAs as rows need, so the scheduler walks the rows level-major and each
-// level's 4 MiB slice is hot in L2 while its rows land. On the levels the
-// caller marks dense (`agg_levels`, from each level's extent: the rows it
-// can reach), neighbouring points share coarse corners. There a warp
-// whose rows repeat — some row equals the one eight lanes on, the same
-// corner of the next point — first sums its rows per address
-// (`__match_any_sync` and a shuffle tree) and one lane adds each sum; a
-// warp without repeats pays one shuffle and one vote. Tried and measured
-// slower on the card, so not kept: shared-memory privatization of levels
-// 0–1 (16 CTAs a level, flushed once a row), rows paired into float4
-// atomics, and persistent CTAs that zero each level in L2 just ahead of
-// its adds (work tickets).
+// level's 4 MiB slice is hot in L2 while its rows land. Where neighbouring
+// points share corners, a warp whose rows repeat — some row equals the
+// one eight lanes on, the same corner of the next point — first sums its
+// rows per address (`__match_any_sync` and a shuffle tree) and one lane
+// adds each sum; a warp without repeats pays one shuffle and one vote.
+// Tried and measured slower on the card, so not kept: shared-memory
+// privatization of levels 0–1 (16 CTAs a level, flushed once a row), rows
+// paired into float4 atomics, and persistent CTAs that zero each level in
+// L2 just ahead of its adds (work tickets).
 //
 // Float atomics land in an order that changes from run to run, so the
 // result matches a sequential sum to rounding, not bit for bit. The TPU
@@ -71,8 +69,7 @@ __device__ __forceinline__ bool reduce_peers(unsigned peers, float2& v) {
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(const int* __restrict__ idx, const float* __restrict__ v0,
                const float* __restrict__ v1, long long rows_per_level,
-               long long total, int table_size,
-               unsigned long long agg_levels, float2* __restrict__ out) {
+               long long total, int table_size, float2* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   int row = -1, level = 0;
   float2 v = make_float2(0.0f, 0.0f);
@@ -82,16 +79,15 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ v0,
     level = static_cast<int>(i / rows_per_level);
   }
   const bool ok = static_cast<unsigned>(row) < static_cast<unsigned>(table_size);
-  const bool agg = ok && level < 64 && ((agg_levels >> level) & 1ull);
   // Rows r and r + 8 are one corner of two neighbouring points: the warp
   // aggregates only where some such pair is equal (a cheap test first).
   const int lane = threadIdx.x & 31;
   const int ahead = __shfl_down_sync(kFull, row, 8);
   bool lead = true;
-  if (__any_sync(kFull, agg && lane < 24 && ahead == row)) {
+  if (__any_sync(kFull, ok && lane < 24 && ahead == row)) {
     // every lane takes part in the match
     const unsigned long long key =
-        agg ? (static_cast<unsigned long long>(level) << 32) | static_cast<unsigned>(row)
+        ok ? (static_cast<unsigned long long>(level) << 32) | static_cast<unsigned>(row)
             : ~0ull - lane;  // alone in its group
     lead = reduce_peers(__match_any_sync(kFull, key), v);
   }
@@ -101,17 +97,15 @@ scatter_kernel(const int* __restrict__ idx, const float* __restrict__ v0,
 
 }  // namespace
 
-// agg_levels: bit l set where level l's rows are warp-aggregated.
 extern "C" int yea_hash_scatter(const int* idx, const float* v0,
                                 const float* v1, int levels,
                                 long long rows_per_level, int table_size,
-                                unsigned long long agg_levels, float* out,
-                                void* stream) {
+                                float* out, void* stream) {
   const long long total = static_cast<long long>(levels) * rows_per_level;
   if (total > 0)
     scatter_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
                      kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        idx, v0, v1, rows_per_level, total, table_size, agg_levels,
+        idx, v0, v1, rows_per_level, total, table_size,
         reinterpret_cast<float2*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,7 @@ custom VJP:
   * backward — the point gradient from the elementwise trilinear formulas
     (zero where x was clipped), and the table gradient through
     `hashgrid_cuda.hash_scatter_add` (K4: `csrc/hash_scatter.cu` on CUDA
-    tensors, given each level's extent so that the coarse dense levels are
-    privatized in shared memory; `index_add_` on CPU tensors) for the
-    production width
+    tensors, `index_add_` on CPU tensors) for the production width
     `n_features_per_level == 2`, or `index_add_` for other widths — the JAX
     package's exact gate between its Pallas and XLA paths. `level_mask`
     gets no gradient.
@@ -73,13 +71,6 @@ class HashGridConfig:
             int(self.base_resolution * self.per_level_scale**lvl)
             for lvl in range(self.n_levels)
         ]
-
-
-def level_extents(cfg: HashGridConfig) -> list[int]:
-    """Per level, a bound on its corner ids: (res + 1)³ for a dense level,
-    the table size for a hashed one."""
-    return [min((res + 1) ** 3, cfg.table_size)
-            for res in cfg.level_resolutions()]
 
 
 def init_hashgrid_params(generator: Optional[torch.Generator],
@@ -157,8 +148,7 @@ def _table_grad(cfg: HashGridConfig, la: int, idx_all, v_all) -> Tensor:
         idx = torch.stack(idx_all).to(torch.int32).contiguous()
         v = torch.stack(v_all)  # (la, R, 2)
         return hash_scatter_add(idx, v[..., 0].contiguous(),
-                                v[..., 1].contiguous(), t,
-                                extents=level_extents(cfg)[:la])
+                                v[..., 1].contiguous(), t)
     level = torch.arange(la, device=idx_all[0].device)[:, None]
     flat = (level * t + torch.stack(idx_all)).reshape(-1)
     out = torch.zeros((la * t, f), dtype=torch.float32,

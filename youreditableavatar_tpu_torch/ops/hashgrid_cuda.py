@@ -4,10 +4,8 @@ Counterpart of `youreditableavatar_tpu/ops/hashgrid_pallas.py`, whose Pallas
 kernel (`_scatter_kernel`) becomes `csrc/hash_scatter.cu`: the (v0, v1)
 rows add into the zeroed (L, T, 2) f32 table, padding rows (index
 `table_size`) dropped: one thread a row, one float2 atomicAdd on global
-memory. With `extents` (each level's reachable rows, from
-`hashgrid.level_extents`), the rows of the dense levels (extent below the
-table size), whose neighbours share coarse corners, are first summed
-within the warp per address.
+memory; a warp whose rows repeat (neighbouring points on one corner) first
+sums its rows per address.
 
 CPU tensors go to `hash_scatter_add_plain` (`index_add_` into the
 flattened table, padding rows dropped). Float atomics add in a run-to-run
@@ -16,8 +14,6 @@ bit.
 """
 
 from __future__ import annotations
-
-from typing import Optional, Sequence
 
 import torch
 from torch import Tensor
@@ -54,17 +50,8 @@ def hash_scatter_add_plain(idx: Tensor, v0: Tensor, v1: Tensor,
     return out.reshape(levels, table_size, F)
 
 
-def aggregated_levels(extents: Optional[Sequence[int]], table_size: int) -> int:
-    """Bit mask of the levels whose rows the kernel sums within a warp
-    first: those whose extent is below the table size (dense levels;
-    levels 64 and up never)."""
-    if extents is None:
-        return 0
-    return sum(1 << lvl for lvl, e in enumerate(extents[:64]) if e < table_size)
-
-
-def hash_scatter_add(idx: Tensor, v0: Tensor, v1: Tensor, table_size: int,
-                     extents: Optional[Sequence[int]] = None) -> Tensor:
+def hash_scatter_add(idx: Tensor, v0: Tensor, v1: Tensor,
+                     table_size: int) -> Tensor:
     """Accumulate rows into per-level tables: out[l, idx[l,r], :] += v[l,r].
 
     Args:
@@ -72,15 +59,8 @@ def hash_scatter_add(idx: Tensor, v0: Tensor, v1: Tensor, table_size: int,
         `table_size` are dumped (padding sentinel).
       v0, v1: (L, R) f32 feature-0 / feature-1 update values.
       table_size: rows per level table (multiple of 64).
-      extents: optional, per level, a bound on its ids (ids < extents[l]);
-        the kernel warp-aggregates the rows of the levels whose extent is
-        below `table_size`. The default is the generic path for every
-        level.
     Returns: (L, table_size, 2) f32.
     """
-    if extents is not None and len(extents) != idx.shape[0]:
-        raise ValueError(f"extents must have one entry per level, got "
-                         f"{len(extents)} for {idx.shape[0]} levels")
     if not idx.is_cuda:
         return hash_scatter_add_plain(idx, v0, v1, table_size)
     _check_table(idx, v0, v1, table_size)
@@ -91,15 +71,14 @@ def hash_scatter_add(idx: Tensor, v0: Tensor, v1: Tensor, table_size: int,
         raise ValueError("idx, v0 and v1 must lie on one device")
     out = torch.zeros((idx.shape[0], table_size, F), dtype=torch.float32,
                       device=idx.device)
-    _scatter_into(idx, v0, v1, table_size, extents, out)
+    _scatter_into(idx, v0, v1, table_size, out)
     return out
 
 
 def _scatter_into(idx: Tensor, v0: Tensor, v1: Tensor, table_size: int,
-                  extents: Optional[Sequence[int]], out: Tensor) -> None:
+                  out: Tensor) -> None:
     """Launch K4: add into the zeroed (L, table_size, 2) CUDA table `out`."""
     levels, rows = idx.shape
     _kernels.launch("hash_scatter", "yea_hash_scatter", idx.device,
                     idx.data_ptr(), v0.data_ptr(), v1.data_ptr(), levels,
-                    rows, table_size, aggregated_levels(extents, table_size),
-                    out.data_ptr())
+                    rows, table_size, out.data_ptr())

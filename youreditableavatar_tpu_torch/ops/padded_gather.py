@@ -59,11 +59,8 @@ class _PaddedGather(torch.autograd.Function):
         buf = g.new_zeros((n + d,) + g.shape[1:]).index_add_(
             0, spread_padding(idx, pad, n, d), g)
         grad = buf[:n]
-        row = ctx.pad_row
-        if isinstance(row, Tensor):
-            grad.index_add_(0, row.reshape(1), buf[n:].sum(0, keepdim=True))
-        elif row is not None:
-            grad[row] += buf[n:].sum(0)
+        if ctx.pad_row is not None:
+            grad.index_add_(0, ctx.pad_row.reshape(1), buf[n:].sum(0, keepdim=True))
         return grad, None, None, None
 
 
@@ -79,10 +76,12 @@ def gather_rows(x: Tensor, idx: Tensor, pad: Optional[Tensor] = None,
     gradient, or where the padding slots' gradient is zero by construction.
     """
     flat = idx.reshape(-1)
+    if pad is None and pad_row is None:
+        raise ValueError("gather_rows needs `pad` or `pad_row`")
     if pad is None:
-        if pad_row is None:
-            raise ValueError("gather_rows needs `pad` or `pad_row`")
         pad = flat == pad_row
+    if isinstance(pad_row, int):  # a fill on the device, not a copy
+        pad_row = torch.full((), pad_row, dtype=torch.int64, device=flat.device)
     out = _PaddedGather.apply(x, flat, pad.reshape(-1), pad_row)
     return out if idx.dim() == 1 else out.reshape(idx.shape + x.shape[1:])
 
