@@ -10,7 +10,12 @@ prints no result):
                (ptxas's registers / shared memory of the compositing kernels;
                the compositing forward's resident 4-CTA clusters).
   3. kernels — every kernel against its plain PyTorch version on the card:
-               pair expansion, tile histogram and counting ranks bit-exact,
+               pair expansion, tile histogram and counting ranks bit-exact
+               at the render's, the inpaint fit's and a sharded band's pair
+               budgets (each kernel's own launch timed apart from its
+               wrapper, with the profiled device time by kernel), the
+               expansion with its total past the budget, the ranks over
+               1024 blocks at 257 and 16,385 bins,
                compositing forward (its checkpoints bit-exact) and its
                gradient at full width with the tile-depth line, the
                per-pair compositing backward (K6) over the same layout's
@@ -120,6 +125,18 @@ K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 SHARDED_STEPS, SHARDED_BANDS = 20, (2, 4)
 SHARDED_KERNELS = ("tile_histogram", "counting_layout", "expand_pairs",
                    "composite_forward", "composite_backward_pairs")
+# Pair budgets of K2 / K3 beside the render's: the edit stage's inpaint fit
+# (auto-sized), and one below the render scene's pre-cull total (overflow).
+INPAINT_BUDGET, OVERFLOW_BUDGET = 393_216, 65_536
+LAYOUT_ITERS = 200  # launches back to back per layout-kernel timing
+# A sleep long enough (~20 ms at the H100's clock) for the host to queue
+# LAYOUT_ITERS launches behind it.
+QUEUE_SLEEP_CYCLES = 40_000_000
+# Profiled kernels of K2 and K3 (the first port's and the present ones; the
+# K3b entry's status clear is a memset).
+LAYOUT_WATCH = ("expand_kernel", "expand_window_kernel", "hist_kernel",
+                "block_counts_kernel", "column_scan_kernel", "rank_dst_kernel",
+                "rank_lookback_kernel", "memset")
 
 
 def make_bench_scene(dev, seed=0, n=None, size=None):
@@ -191,6 +208,24 @@ def device_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters, warmup=2):
+    """Mean device time of `fn` over `iters` calls queued behind a sleep
+    kernel: the host enqueues every call before the first runs, so the
+    events read the device's time back to back, not the host's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def each_device_ms(fn, iters, warmup=3):
     """Device time of each of `iters` calls (CUDA events around each)."""
     for _ in range(warmup):
@@ -251,73 +286,46 @@ def phase_kernels(dev, report):
         proj = preprocess_gaussians(means, scales, quats, opac, sh, cam, 3, 32)
         packed = pack_depth_ordered(proj)
 
-        # K2: pair expansion, bit-exact.
-        tk, gk, nk = expand_pairs_kernel(packed, PAIR_BUDGET, ntx, nty, 32)
-        tp, gp, np_ = expand_pairs_plain(packed, PAIR_BUDGET, ntx, nty, 32)
+        # K2, K3a, K3b bit-exact against their plain versions, and timed
+        # (each kernel's own launch beside its wrapper) at the render's and
+        # the inpaint fit's pair budgets; the sharded band's in
+        # check_sharded_layout.
+        layout = time_layout(packed, PAIR_BUDGET, ntx, nty, "render")
+        time_layout(packed, INPAINT_BUDGET, ntx, nty, "inpaint fit")
+        for name in ("expand_pairs", "tile_histogram", "counting_layout"):
+            report[name] = layout[name]
+
+        # K2 with the pre-cull total past the budget (overflow), bit-exact.
+        tk, gk, nk = expand_pairs_kernel(packed, OVERFLOW_BUDGET, ntx, nty, 32)
+        tp, gp, np_ = expand_pairs_plain(packed, OVERFLOW_BUDGET, ntx, nty, 32)
         err = max(int((tk - tp).abs().max()), int((gk - gp).abs().max()),
                   abs(int(nk) - int(np_)))
-        live = int((tk < num_t).sum())
-        print(f"  expand_pairs: total {int(nk)} pairs, {live} kept after the "
-              f"cull, max |kernel - plain| = {err}")
-        if err:
-            raise AssertionError("expand_pairs kernel differs from its plain version")
-        report["expand_pairs"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda: expand_pairs_kernel(packed, PAIR_BUDGET, ntx,
-                                                    nty, 32), 50),
-            plain_ms=device_ms(lambda: expand_pairs_plain(packed, PAIR_BUDGET,
-                                                         ntx, nty, 32), 5),
-            bound=bound(packed.numel() * 4 + 2 * PAIR_BUDGET * 4 + 4, 60 * PAIR_BUDGET),
-        )
+        print(f"  expand_pairs at budget {OVERFLOW_BUDGET} < total {int(nk)} "
+              f"(overflow): max |kernel - plain| = {err}")
+        if err or not int(nk) > OVERFLOW_BUDGET:
+            raise AssertionError("expand_pairs differs on overflow")
 
-        # K3a: tile histogram, bit-exact.
-        hk, hp = tile_histogram(tk, num_t), tile_histogram_plain(tk, num_t)
-        err = int((hk - hp).abs().max())
-        print(f"  tile_histogram: max |kernel - plain| = {err}")
-        if err:
-            raise AssertionError("tile_histogram kernel differs")
-        report["tile_histogram"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda: tile_histogram(tk, num_t), 100),
-            plain_ms=device_ms(lambda: tile_histogram_plain(tk, num_t), 20),
-            library_ms=device_ms(lambda: torch.bincount(tk, minlength=num_t + 1), 100),
-            bound=bound(PAIR_BUDGET * 4 + (num_t + 1) * 4, PAIR_BUDGET),
-        )
-
-        # K3b: stable ranks → destinations, bit-exact.
         def astart_ext_of(hist, tiles, pairs):
             return aligned_starts_ext(hist, tiles, comp.CHUNK,
                                       pairs + tiles * comp.CHUNK)
 
-        astart_ext = astart_ext_of(hk, num_t, PAIR_BUDGET)
-        dk = rank_destinations(tk, astart_ext)
-        dp = rank_destinations_plain(tk, astart_ext)
-        err = int((dk - dp).abs().max())
-        print(f"  counting_layout: max |kernel - plain| = {err}")
-        if err:
-            raise AssertionError("counting_layout kernel differs")
-        report["counting_layout"] = dict(
-            max_abs_err=err,
-            ms=device_ms(lambda: rank_destinations(tk, astart_ext), 100),
-            plain_ms=device_ms(lambda: rank_destinations_plain(tk, astart_ext), 10),
-            bound=bound(2 * PAIR_BUDGET * 4 + (num_t + 1) * 4, 3 * PAIR_BUDGET),
-        )
-
-        # K3a/K3b past a block's default 48 KB of shared memory: 16,385
-        # bins (a 4096² image at tile 32), random tile ids, bit-exact.
-        big_t, big_p = 16_384, 1 << 20
-        tb = torch.randint(0, big_t + 1, (big_p,), dtype=torch.int32,
-                           device=dev, generator=torch.Generator(
-                               device=dev).manual_seed(3))
-        hb = tile_histogram(tb, big_t)
-        ext = astart_ext_of(hb, big_t, big_p)
-        err = max(int((hb - tile_histogram_plain(tb, big_t)).abs().max()),
-                  int((rank_destinations(tb, ext)
-                       - rank_destinations_plain(tb, ext)).abs().max()))
-        print(f"  counting at {big_t} tiles, {big_p} pairs: max |kernel - "
-              f"plain| = {err}")
-        if err:
-            raise AssertionError("counting kernels differ at 16,384 tiles")
+        # K3a/K3b over 1024 blocks (1 << 20 random tile ids) at the render's
+        # 257 bins and past a block's default 48 KB of shared memory at
+        # 16,385 bins (a 4096² image at tile 32), bit-exact.
+        big_p = 1 << 20
+        for big_t in (num_t, 16_384):
+            tb = torch.randint(0, big_t + 1, (big_p,), dtype=torch.int32,
+                               device=dev, generator=torch.Generator(
+                                   device=dev).manual_seed(3))
+            hb = tile_histogram(tb, big_t)
+            ext = astart_ext_of(hb, big_t, big_p)
+            err = max(int((hb - tile_histogram_plain(tb, big_t)).abs().max()),
+                      int((rank_destinations(tb, ext)
+                           - rank_destinations_plain(tb, ext)).abs().max()))
+            print(f"  counting at {big_t} tiles, {big_p} pairs "
+                  f"({big_p // 1024} blocks): max |kernel - plain| = {err}")
+            if err:
+                raise AssertionError(f"counting kernels differ at {big_t} tiles")
 
         # K1f: compositing forward at full width.
         fields, pg, astart, tcount, _ = build_pair_layout_counting(
@@ -445,6 +453,155 @@ def phase_kernels(dev, report):
     check_sharded_layout(dev)
     report["mesh_resolve"] = check_mesh_resolve(dev)
     report["hash_scatter"] = check_hash_scatter(dev)
+
+
+def entry(fn_name):
+    """The kernel library's C entry `fn_name`, called on the current
+    stream: a kernel's own launch, without its wrapper's checks,
+    allocations, cumsum and count."""
+    from youreditableavatar_tpu_torch import _kernels
+
+    fn = getattr(_kernels.library(), fn_name)
+
+    def call(*args):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{fn_name} failed: CUDA error {err}")
+    return call
+
+
+def kernel_name(key: str) -> str:
+    """A profiler kernel name without its return type, namespace and
+    argument list."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("(")[0][:60]
+
+
+def kernel_split(fn, iters=20):
+    """{kernel name: device ms per call} of `fn` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
+            name = kernel_name(e.key)
+            split[name] = (split.get(name, 0.0)
+                           + e.self_device_time_total / iters / 1e3)
+    return split
+
+
+def time_layout(packed, budget, ntx, nty, what):
+    """K2, K3a and K3b at one pair budget on one packed table: each
+    checked bit for bit against its plain version; each kernel's own
+    launch timed apart from its wrapper (inputs and scratch allocated once,
+    CUDA events around LAYOUT_ITERS launches back to back: queued behind a
+    sleep, so the device's time, and as issued, which the host can bound)
+    beside the wrapper's time (events as issued) and torch.profiler's
+    device time by kernel of the own launch. Returns {name: report
+    entry}."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+        composite_cuda as comp)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.counting import (
+        aligned_starts_ext, rank_destinations, rank_destinations_plain,
+        tile_histogram, tile_histogram_plain)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.expand_cuda import (
+        expand_pairs_kernel, expand_pairs_plain)
+
+    num_t = ntx * nty
+    nbins = num_t + 1
+    with torch.no_grad():
+        tk, gk, nk = expand_pairs_kernel(packed, budget, ntx, nty, 32)
+        tp, gp, np_ = expand_pairs_plain(packed, budget, ntx, nty, 32)
+        hk = tile_histogram(tk, num_t)
+        astart_ext = aligned_starts_ext(hk, num_t, comp.CHUNK,
+                                        budget + num_t * comp.CHUNK)
+        dk = rank_destinations(tk, astart_ext)
+        errs = {
+            "expand_pairs": max(int((tk - tp).abs().max()),
+                                int((gk - gp).abs().max()),
+                                abs(int(nk) - int(np_))),
+            "tile_histogram": int((hk - tile_histogram_plain(tk, num_t))
+                                  .abs().max()),
+            "counting_layout": int((dk - rank_destinations_plain(
+                tk, astart_ext)).abs().max()),
+        }
+        n, total = packed.shape[0], int(nk)
+        cum = torch.cumsum(packed[:, 0].to(torch.int32), 0, dtype=torch.int32)
+        tile, gauss, dst = (torch.empty_like(tk) for _ in range(3))
+        counts = torch.zeros(nbins, dtype=torch.int32, device=tk.device)
+        # Scratch as large as the first port's K3b needed, so that the same
+        # calls time either kernel.
+        scratch = torch.empty((budget // 1024) * nbins, dtype=torch.int32,
+                              device=tk.device)
+        expand, hist, ranks = (entry("yea_expand_pairs"),
+                               entry("yea_tile_histogram"),
+                               entry("yea_counting_layout"))
+        own = {
+            "expand_pairs": lambda: expand(
+                packed.data_ptr(), cum.data_ptr(), n, tile.data_ptr(),
+                gauss.data_ptr(), budget, ntx, nty, 32),
+            "tile_histogram": lambda: hist(tk.data_ptr(), counts.data_ptr(),
+                                           budget, nbins),
+            "counting_layout": lambda: ranks(
+                tk.data_ptr(), astart_ext.data_ptr(), scratch.data_ptr(),
+                dst.data_ptr(), budget, nbins),
+        }
+        for fn in own.values():
+            fn()
+        if not (torch.equal(tile, tk) and torch.equal(gauss, gk)
+                and torch.equal(counts, hk) and torch.equal(dst, dk)):
+            errs["own launch"] = 1
+        wrapped = {
+            "expand_pairs": lambda: expand_pairs_kernel(packed, budget, ntx,
+                                                        nty, 32),
+            "tile_histogram": lambda: tile_histogram(tk, num_t),
+            "counting_layout": lambda: rank_destinations(tk, astart_ext),
+        }
+        plain = {
+            "expand_pairs": lambda: expand_pairs_plain(packed, budget, ntx,
+                                                       nty, 32),
+            "tile_histogram": lambda: tile_histogram_plain(tk, num_t),
+            "counting_layout": lambda: rank_destinations_plain(tk, astart_ext),
+        }
+        bounds = {
+            "expand_pairs": bound(packed.numel() * 4 + 2 * budget * 4 + 4,
+                                  60 * min(total, budget)),
+            "tile_histogram": bound(budget * 4 + nbins * 4, budget),
+            "counting_layout": bound(2 * budget * 4 + nbins * 4, 3 * budget),
+        }
+        out = {}
+        for name, fn in own.items():
+            split = kernel_split(fn)
+            out[name] = dict(
+                max_abs_err=errs[name],
+                kernel_ms=queued_ms(fn, LAYOUT_ITERS),
+                issued_ms=device_ms(fn, LAYOUT_ITERS),
+                ms=device_ms(wrapped[name], LAYOUT_ITERS),
+                plain_ms=device_ms(plain[name], 5),
+                bound=bounds[name], split=split)
+        out["tile_histogram"]["library_ms"] = device_ms(
+            lambda: torch.bincount(tk, minlength=nbins), LAYOUT_ITERS)
+    print(f"  layout at the {what}'s budget {budget} ({budget // 1024} "
+          f"blocks, {nbins} bins, {n} rows, pre-cull total {total}, "
+          f"{int((tk < num_t).sum())} kept): max |kernel - plain| "
+          f"{json.dumps(errs)}")
+    for name, r in out.items():
+        print(f"    {name}: own launch {r['kernel_ms']:.4f} ms (events over "
+              f"{LAYOUT_ITERS} queued back to back; as issued "
+              f"{r['issued_ms']:.4f}), wrapper {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound'][0]:.5f} ms by "
+              f"{r['bound'][1]}; profiled device ms per launch: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in r["split"].items()))
+    if any(errs.values()):
+        raise AssertionError(f"layout kernels differ at the {what}'s budget")
+    return out
 
 
 def check_checkpoints(ck, ck_plain, astart, what):
@@ -686,17 +843,7 @@ def kernel_ms(fn, iters=20):
     """Device time of `fn`'s kernels per call (torch.profiler's sum over
     `iters` calls): what the events' statistics read when the host keeps
     up, without the host's time when it does not."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation) / iters / 1e3
+    return sum(kernel_split(fn, iters).values())
 
 
 def time_gather(fields, pg, what):
@@ -778,6 +925,8 @@ def check_sharded_layout(dev):
     from youreditableavatar_tpu_torch.models.tetgs import gaussian_arrays
     from youreditableavatar_tpu_torch.ops.gaussian_raster import (
         composite_cuda as comp)
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.binning import (
+        pack_depth_ordered)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.preprocess import (
         preprocess_gaussians)
     from youreditableavatar_tpu_torch.ops.gaussian_raster.render import (
@@ -812,6 +961,8 @@ def check_sharded_layout(dev):
     check_checkpoints(ck, ck_plain, astart, "sharded layout vs plain")
     time_forward(rows, None, astart, tcount, ntx, "sharded layout")
     time_gather(fields, pg, "the sharded layout")
+    time_layout(pack_depth_ordered(proj), cfg.pair_budget, ntx, nty,
+                "sharded band")
 
 
 def scatter_points(shape: str, gen) -> torch.Tensor:
@@ -1168,7 +1319,7 @@ def phase_render(dev, kernels):
     if any(v == 0 for v in launches.values()):
         raise AssertionError("a kernel of the render path was never launched")
     median = statistics.median(times)
-    profile_window(step, iters=5, step_ms=median)
+    profile_window(step, iters=5, step_ms=median, watch=LAYOUT_WATCH)
     return median
 
 
@@ -1290,7 +1441,8 @@ def phase_fit(dev, kernels):
           f"over {FIT_TIMED_STEPS} synchronised steps (min {min(times):.3f}, "
           f"max {max(times):.3f})")
     step = trainer.step_fn(FIT_STEPS + FIT_TIMED_STEPS)
-    profile_window(lambda: step(0), iters=5, step_ms=median)
+    profile_window(lambda: step(0), iters=5, step_ms=median,
+                   watch=LAYOUT_WATCH)
     return launches
 
 
@@ -1497,12 +1649,13 @@ def phase_edit(dev, kernels):
     weight = (view["editable"] > 0.5).to(torch.float32)
     print("  inpaint fit step:")
     profile_window(lambda: fit_step(probe, optimizer, cam0, target, weight),
-                   iters=5, step_ms=fit_ms)
+                   iters=5, step_ms=fit_ms, watch=LAYOUT_WATCH)
     print("  render_view:")
     profile_window(lambda: mesh_model.render_view(cam0), iters=5,
                    step_ms=statistics.median(view_ms))
     print("  refine step:")
-    profile_window(lambda: refine.step(0), iters=5, step_ms=refine_ms)
+    profile_window(lambda: refine.step(0), iters=5, step_ms=refine_ms,
+                   watch=LAYOUT_WATCH)
     return launches
 
 
@@ -1820,7 +1973,8 @@ def phase_sharded(dev, kernels):
         if launches["composite_backward"] != 0:
             raise AssertionError("the sharded step went through the fused backward")
         assert_replicated(params)
-        profile_window(lambda: step(params, batch), iters=3, step_ms=median)
+        profile_window(lambda: step(params, batch), iters=3, step_ms=median,
+                       watch=LAYOUT_WATCH)
         return launches
     finally:
         dist.destroy_process_group()
@@ -1934,6 +2088,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
+            "kernel_ms": r.get("kernel_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,8 +15,12 @@ import pytest
 import torch
 
 from torch_port_helpers import (
+    EXPAND_CASES,
+    RANK_CASES,
     cuda_device,  # noqa: F401  (fixture)
+    expand_case,
     jax_camera,
+    rank_case,
     random_scene,
     single_threaded_torch,  # noqa: F401  (fixture)
     to_torch_proj,
@@ -119,6 +123,62 @@ class TestExpansion:
         tile, gauss, total = expand_pairs_kernel(packed, 1024, 3, 2, 32)
         assert int(total) == 0
         assert bool((tile == 6).all()) and bool((gauss == 0).all())
+
+
+class TestExpansionWindow:
+    """The fact K2's kernel rests on: zero-pair rows sort last, so every
+    row before them owns ≥ 1 slot and the owners of any 1024 consecutive
+    slots lie in [lo, lo + 1024), lo the first slot's owner — the first
+    row whose cumsum exceeds the slot. Held against the JAX package's
+    expansion (the XLA path writes each slot's owner, culled or not)."""
+
+    @pytest.mark.parametrize("seed,n,offscreen", [
+        (0, 3000, 0.0), (1, 4000, 0.8), (2, 6000, 0.97)])
+    def test_block_owners_lie_in_one_window(self, seed, n, offscreen):
+        from youreditableavatar_tpu.ops.gaussian_raster.binning import (
+            expand_pairs, pack_depth_ordered)
+
+        scene, vm, w, h = random_scene(seed, n, 96, 64, scale_hi=0.12)
+        rng = np.random.default_rng(seed)
+        # Push a share of the Gaussians out of the frame or behind the
+        # camera: they touch no tile.
+        away = rng.uniform(size=n) < offscreen
+        scene["means"][away, 0] += rng.choice([-40.0, 40.0], int(away.sum()))
+        scene["means"][away[::-1], 2] -= 10.0
+        from youreditableavatar_tpu.ops.gaussian_raster.preprocess import (
+            preprocess_gaussians)
+        pj = preprocess_gaussians(
+            *(jnp.asarray(scene[k]) for k in ("means", "scales", "quats",
+                                              "opac")),
+            jnp.zeros((n, 1, 3)), jax_camera(vm, 0.8, 0.6, w, h), 0, 32)
+        packed = np.asarray(pack_depth_ordered(pj))
+        counts = packed[:, 0].astype(np.int64)
+        live = int((counts > 0).sum())
+        assert live > 0 and (counts[:live] > 0).all() and not counts[live:].any()
+        if offscreen:
+            assert live < n * (1 - offscreen / 2)
+        cum = np.cumsum(counts)
+        total = int(cum[-1])
+        budget = -(-total // 1024) * 1024
+        _, gauss, n_pairs = expand_pairs(pj, 3, 2, budget, 32)
+        assert int(n_pairs) == total
+        row_of = np.empty(n, np.int64)
+        row_of[packed[:, 4].astype(np.int64)] = np.arange(n)
+        owner = row_of[np.asarray(gauss)[:total]]
+        # Every live row owns a slot; the owners follow the rows in order.
+        assert np.array_equal(np.unique(owner), np.arange(live))
+        assert (np.diff(owner) >= 0).all()
+        for first in range(0, total, 1024):
+            block = owner[first:first + 1024]
+            lo = int(np.searchsorted(cum, first, side="right"))
+            hi = int(np.searchsorted(cum, first + len(block) - 1, side="right"))
+            assert block[0] == lo and block[-1] == hi
+            assert hi < lo + 1024
+            # Each slot's owner found inside the staged window alone.
+            window = cum[lo:hi + 1]
+            slots = np.arange(first, first + len(block))
+            assert np.array_equal(
+                lo + np.searchsorted(window, slots, side="right"), block)
 
 
 def _chunk_boundary_tiles(counts, budget, seed):
@@ -312,3 +372,40 @@ def test_layout_kernels_match_plain_on_card(cuda_device):
                               dtype=torch.int32, device=cuda_device)
     assert torch.equal(tc.rank_destinations(tile, astart_ext),
                        tc.rank_destinations_plain(tile, astart_ext))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(EXPAND_CASES))
+def test_expand_kernel_matches_plain_on_card(cuda_device, case):
+    """K2 bit for bit against its plain version: the total past the budget,
+    an owner of more than 1024 slots, fewer rows than a block, an empty
+    table and one of zero-pair rows, the last live row ending on a block
+    edge, zero-pair rows inside the table."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster.expand_cuda import (
+        expand_pairs_kernel, expand_pairs_plain,
+    )
+
+    packed, budget = expand_case(case)
+    packed = torch.tensor(packed, device=cuda_device)
+    out_k = expand_pairs_kernel(packed, budget, 64, 64, 32)
+    out_p = expand_pairs_plain(packed, budget, 64, 64, 32)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RANK_CASES))
+def test_rank_kernel_matches_plain_on_card(cuda_device, case):
+    """K3b bit for bit against its plain version: 1 << 20 pairs at 16,385
+    bins, every pair in one bin, every pair in the sentinel bin, one
+    block, 1024 blocks."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import counting as tc
+
+    tile, nbins = rank_case(case)
+    tile = torch.tensor(tile, device=cuda_device)
+    hist = tc.tile_histogram(tile, nbins - 1)
+    assert torch.equal(hist, tc.tile_histogram_plain(tile, nbins - 1))
+    ext = tc.aligned_starts_ext(hist, nbins - 1, 128,
+                                tile.shape[0] + (nbins - 1) * 128)
+    assert torch.equal(tc.rank_destinations(tile, ext),
+                       tc.rank_destinations_plain(tile, ext))

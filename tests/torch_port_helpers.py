@@ -346,3 +346,77 @@ def replication_worker(rank, world, perturb_rank):
     except AssertionError as err:
         return str(err)
     return None
+
+
+def packed_table(counts, seed=0, grid=64):
+    """(N, 16) f32 pair-expansion table laid out as
+    `binning.pack_depth_ordered`'s, with the given tiles_touched per row:
+    near-square tile rectangles inside a grid × grid tile grid, means near
+    them, conics and opacities such that the exact cull keeps some slots
+    and drops others."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    n = len(counts)
+    w = np.clip(np.ceil(np.sqrt(np.maximum(counts, 1))), 1, grid).astype(np.int64)
+    h = np.minimum(-(-np.maximum(counts, 1) // w), grid)
+    t = np.zeros((n, 16), np.float32)
+    t[:, 0] = counts
+    t[:, 1] = rng.integers(0, grid - w + 1)
+    t[:, 2] = rng.integers(0, grid - h + 1)
+    t[:, 3] = w
+    t[:, 4] = rng.permutation(n)
+    t[:, 5] = (t[:, 1] + w / 2) * 32 + rng.normal(0, 24, n)
+    t[:, 6] = (t[:, 2] + h / 2) * 32 + rng.normal(0, 24, n)
+    sx, sy = rng.uniform(4, 16 * np.sqrt(w)), rng.uniform(4, 16 * np.sqrt(h))
+    rho = rng.uniform(-0.6, 0.6, n)
+    t[:, 7] = 1 / (sx * sx * (1 - rho * rho))
+    t[:, 8] = -rho / (sx * sy * (1 - rho * rho))
+    t[:, 9] = 1 / (sy * sy * (1 - rho * rho))
+    t[:, 10] = 2 * np.log(255 * rng.uniform(0.01, 1.0, n))
+    return t
+
+
+# K2's card cases: name → (tiles_touched per row, pair budget). The owners
+# of a block's slots form one window of ≤ 1024 rows where zero-pair rows
+# come last; "zero_rows_inside" breaks that on purpose (the kernel stages
+# such a window in turns).
+_LIVE = np.random.default_rng(0).integers(1, 12, 4000)
+EXPAND_CASES = {
+    "overflow": (list(_LIVE[:3000]) + [0] * 40, 8192),
+    "owner_past_a_block": ([3, 2500, 5, 1, 1400] + list(_LIVE[:400]) + [0] * 50,
+                           8192),
+    "fewer_rows_than_a_block": (list(_LIVE[:300]) + [0] * 20, 4096),
+    "empty": ([], 2048),
+    "all_rows_zero": ([0] * 64, 1024),
+    "ends_on_a_block_edge": ([4] * 512 + [0] * 30, 4096),
+    "zero_rows_inside": ([5] + [0] * 1500 + list(_LIVE[:200]) + [0] * 900
+                         + [7, 3] + [0] * 10, 4096),
+}
+
+
+def expand_case(name):
+    """(packed (N, 16) f32, pair budget) of K2's card case `name`."""
+    counts, budget = EXPAND_CASES[name]
+    return packed_table(counts, seed=len(counts)), budget
+
+
+# K3b's card cases: name → (pairs, bins, how the tile ids are drawn).
+RANK_CASES = {
+    "16385_bins": (1 << 20, 16_385, "random"),
+    "one_bin": (8192, 257, "one"),
+    "sentinel_bin": (8192, 257, "sentinel"),
+    "one_block": (1024, 257, "random"),
+    "1024_blocks": (1 << 20, 257, "random"),
+}
+
+
+def rank_case(name):
+    """((P,) int32 tile ids, bins) of K3b's card case `name`; the last bin
+    is the sentinel's."""
+    p, nbins, kind = RANK_CASES[name]
+    rng = np.random.default_rng(p + nbins)
+    if kind == "random":
+        tile = rng.integers(0, nbins, p)
+    else:
+        tile = np.full(p, 5 if kind == "one" else nbins - 1)
+    return tile.astype(np.int32), nbins

@@ -8,10 +8,12 @@ kernels of `csrc/counting.cu`:
                   sentinel. One CTA per 1024 pairs, shared-memory
                   histogram, one global atomicAdd per non-zero bin.
   counting_layout (K3b): dst[p] = aligned_start[tile[p]] + the stable rank
-                  of pair p among the pairs of its tile, in pair order. A
-                  per-block per-bin count matrix, a scan of each bin's
-                  column over blocks, then in-block ranks from
-                  `__match_any_sync` + the warps' counts taken in order.
+                  of pair p among the pairs of its tile, in pair order. One
+                  pass: each CTA (its block of pairs from an atomic ticket)
+                  ranks its pairs with `__match_any_sync` and per-warp
+                  counts, and gets each bin's count over the blocks before
+                  it from a per-bin decoupled look-back over status words
+                  — the TPU kernel's carried running count, made parallel.
 
 Pairs arrive in global depth order, so stable ranks keep each tile's slot
 range depth-ordered — the invariant compositing needs. The sentinel bin's
@@ -35,6 +37,8 @@ from youreditableavatar_tpu_torch import _kernels
 BLOCK = 1024  # pairs per CTA; the pair budget must be a multiple of it
 # Bins held in one block's shared memory (227 KB of int32).
 MAX_BINS = 232448 // 4
+# Pairs the ranks serve: a status word holds a count below 2^30.
+MAX_PAIRS = 1 << 30
 
 
 def _check_pairs(tile: Tensor) -> None:
@@ -89,11 +93,15 @@ def rank_destinations(tile: Tensor, astart_ext: Tensor) -> Tensor:
     _kernels.check_cuda("tile", tile, torch.int32, 1)
     _kernels.check_cuda("astart_ext", astart_ext, torch.int32, 1)
     p = tile.shape[0]
-    scratch = torch.empty((p // BLOCK) * nbins, dtype=torch.int32,
-                          device=tile.device)
+    if p >= MAX_PAIRS:
+        raise ValueError(f"rank_destinations serves < {MAX_PAIRS} pairs")
+    # The look-back's status words, cleared by the kernel's entry: one per
+    # bin of every block but the last, and the blocks' ticket.
+    status = torch.empty(max(p // BLOCK - 1, 0) * nbins + 1, dtype=torch.int32,
+                         device=tile.device)
     dst = torch.empty(p, dtype=torch.int32, device=tile.device)
     _kernels.launch("counting_layout", "yea_counting_layout", tile.device,
-                    tile.data_ptr(), astart_ext.data_ptr(), scratch.data_ptr(),
+                    tile.data_ptr(), astart_ext.data_ptr(), status.data_ptr(),
                     dst.data_ptr(), p, nbins)
     return dst
 

@@ -2,13 +2,17 @@
 
 Counterpart of `youreditableavatar_tpu/ops/gaussian_raster/expand_pallas.py`
 (`expand_pairs_pallas` → `_expand_kernel`). On the card, `csrc/expand.cu`
-runs one thread per pair slot: the owner Gaussian comes from a binary
-search over the int32 inclusive cumsum of `tiles_touched`, then the tile
-and the exact ellipse–rect + α ≥ 1/255 cull follow the f32 expression tree
-of `binning.tile_and_keep` op for op (no FMA contraction), so the kernel
-agrees with the plain version bit for bit. The TPU design's gaussian
-window, one-hot MXU selects and bf16 splits exist only to get exact f32
-through bf16 matmuls and have no counterpart here.
+runs one CTA per 1024 pair slots, one thread a slot. Zero-pair rows sort
+last, so the owners of a block's slots form one window of at most 1024
+rows: two warps find its ends in the int32 inclusive cumsum of
+`tiles_touched` (32 probes a round), the block stages the window's cumsum
+and the owners' fields in shared memory, and each slot finds its owner
+there. The tile and the exact ellipse–rect + α ≥ 1/255 cull follow the f32
+expression tree of `binning.tile_and_keep` op for op (no FMA contraction),
+so the kernel agrees with the plain version bit for bit. Blocks past the
+pre-cull total only write the sentinel. The TPU design's one-hot MXU
+selects and bf16 splits exist only to get exact f32 through bf16 matmuls
+and have no counterpart here.
 
 CPU tensors go to the plain version (`binning.expand_packed`).
 """
@@ -51,6 +55,8 @@ def expand_pairs_kernel(packed: Tensor, pair_budget: int, ntx: int, nty: int,
     _kernels.check_cuda("packed", packed, torch.float32, 2)
     if packed.shape[1] != PACK_COLS:
         raise ValueError(f"packed must have {PACK_COLS} columns")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned (rows load as float4)")
     n = packed.shape[0]
     cum = torch.cumsum(packed[:, 0].to(torch.int32), 0, dtype=torch.int32)
     total = cum[-1] if n else torch.zeros((), dtype=torch.int32,
