@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, as the check runs it
+    python3 chip_smoke.py --phases kernels # device, build, then those phases
 
 Phases (each prints its line and seconds; any failure exits non-zero and
 prints no result):
@@ -15,7 +16,9 @@ prints no result):
                budgets (each kernel's own launch timed apart from its
                wrapper, with the profiled device time by kernel), the
                expansion with its total past the budget, the ranks over
-               1024 blocks at 257 and 16,385 bins,
+               1024 blocks at 257 and 16,385 bins, the tile histogram
+               bit-exact on a partial last CTA (13 blocks), one block, an
+               input all sentinel and bin counts up to MAX_BINS,
                compositing forward (its checkpoints bit-exact) and its
                gradient at full width with the tile-depth line, the
                per-pair compositing backward (K6) over the same layout's
@@ -41,19 +44,30 @@ prints no result):
   6. edit    — the edit-texture stage on the same icosphere: InpaintTrainer
                (8 ring views, stub inpainter, the cap z > 0.1 editable) →
                prepare_refine_guidance (8 turntable views) → RefineTrainer
-               (40 steps) → validate, at 512².
+               (40 steps) → validate, at 512²; then, at small depth, the
+               inpaint with a HeuristicSegmenter (the edge fix of views 0
+               and 1), the refine with an LPIPS term (10 steps) and
+               LocalMeshEditing.localize from 3 ring views.
   7. spatial — the spatial stage at full width (16 levels × 2^19 hash grid,
                grid 64, 512² normal maps), cut in depth: ShapeInitializer on
                the same icosphere (200 of 15,000 SDF steps, 10 of 501 normal
                steps), then HumanEditTrainer with the stub SDS prior on a
                fresh sphere field's cap z > 0.1, 6 + 30 steps from step 0
                (8 hash levels) and 6 + 30 from step 8000 (16 levels).
-  8. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
+  8. du      — the stage-1 edit in the "du" mode at the spatial phase's
+               full width: SDSDUGuidance (stub prior, per_editing_step 10,
+               an LPIPS perceptual term) for 30 steps from step 0, refresh
+               and pull steps timed apart; LPIPS on the card held against
+               its f32 path on the CPU and timed at 1 × 512².
+  9. mesh    — Mesh.unwrap_uv and its tangents on the 81,920-face
+               icosphere; winding numbers of 4,096 points inside and
+               outside it on the card.
+ 10. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
                on the fit phase's icosphere and 8 ring views at 512²: its
                first step against the single-device render and loss, 2 and
                4 tile-row bands in one process against the unsharded image
                and gradients, then 20 timed steps whose loss must fall.
-  9. a `kernels` JSON line: each kernel's launches on its main path (the
+ 11. a `kernels` JSON line: each kernel's launches on its main path (the
      fit; the edit stage for the mesh resolve; the spatial stage for the
      hash-grid scatter; the sharded step for the per-pair backward), error
      against its plain version, ms, plain ms, library ms and bound.
@@ -99,6 +113,9 @@ MESH_OPS_PER_EVAL = 21
 EDIT_RING, EDIT_LADDER, EDIT_GROUPS = (2, 3, 3), (20, 16, 8), (2, 3)
 EDIT_TURNTABLE, EDIT_REFINE_STEPS, EDIT_TIMED_STEPS = 8, 40, 20
 EDIT_CAP_Z = 0.1  # vertices above it are editable
+# The edit stage's options at small depth: the inpaint ladder with the
+# segmenter edge fix, and the perceptual refine's steps.
+EDIT_OPTION_LADDER, EDIT_OPTION_REFINE = (4, 2, 1), 10
 # The kernels of the Gaussian render: the main path of `render` and `fit`.
 RENDER_KERNELS = ("tile_histogram", "counting_layout", "expand_pairs",
                   "composite_forward", "composite_backward")
@@ -119,6 +136,14 @@ INIT_SDF_STEPS, INIT_NORMAL_STEPS = 200, 10
 EDIT_WARM, EDIT_TIMED, EDIT_STARTS = 6, 30, (0, 8000)
 SPATIAL_GRID = 64  # tet-grid resolution of both spatial stages
 SPATIAL_WATCH = ("index", "indexfunc", "scatter_kernel")
+# The du phase: steps from step 0 and the edit cache's refresh period.
+DU_STEPS, DU_PER_EDIT = 30, 10
+# LPIPS on the card (f32, TF32 off) against its plain path in f64 on the
+# CPU: the image size of the check, the value's relative tolerance, and the
+# gradient's, as a share of its largest entry.
+LPIPS_CHECK_SIZE, LPIPS_RTOL, LPIPS_GRAD_RTOL_OF_MAX = 128, 1e-4, 1e-4
+# The mesh phase: winding-number points and how far from 1 / 0 they may be.
+WINDING_POINTS, WINDING_ATOL = 4096, 1e-3
 K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 # The sharded phase: timed steps, the band counts checked in one process,
 # and the kernels its step launches once per view.
@@ -326,6 +351,7 @@ def phase_kernels(dev, report):
                   f"({big_p // 1024} blocks): max |kernel - plain| = {err}")
             if err:
                 raise AssertionError(f"counting kernels differ at {big_t} tiles")
+        check_histogram_edges(dev, num_t)
 
         # K1f: compositing forward at full width.
         fields, pg, astart, tcount, _ = build_pair_layout_counting(
@@ -602,6 +628,32 @@ def time_layout(packed, budget, ntx, nty, what):
     if any(errs.values()):
         raise AssertionError(f"layout kernels differ at the {what}'s budget")
     return out
+
+
+def check_histogram_edges(dev, num_t):
+    """K3a bit-equal to its plain version at its edges: a last CTA only
+    partly filled (13 blocks of 1024 pairs), a single block, an input all
+    sentinel, and bin counts up to MAX_BINS (one CTA an SM)."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import counting
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = (("13 blocks", 13 * 1024, num_t, "random"),
+             ("one block", 1024, num_t, "random"),
+             ("all sentinel", PAIR_BUDGET, num_t, "sentinel"),
+             ("40,000 tiles", 64 * 1024, 40_000, "random"),
+             ("MAX_BINS", 64 * 1024, counting.MAX_BINS - 1, "random"))
+    for what, p, tiles, kind in cases:
+        if kind == "sentinel":
+            ids = torch.full((p,), tiles, dtype=torch.int32, device=dev)
+        else:
+            ids = torch.randint(0, tiles + 1, (p,), dtype=torch.int32,
+                                device=dev, generator=gen)
+        err = int((counting.tile_histogram(ids, tiles)
+                   - counting.tile_histogram_plain(ids, tiles)).abs().max())
+        print(f"  tile_histogram, {what}: {p // 1024} blocks, {tiles + 1} "
+              f"bins: max |kernel - plain| = {err}")
+        if err:
+            raise AssertionError(f"tile_histogram differs: {what}")
 
 
 def check_checkpoints(ck, ck_plain, astart, what):
@@ -1656,7 +1708,117 @@ def phase_edit(dev, kernels):
     print("  refine step:")
     profile_window(lambda: refine.step(0), iters=5, step_ms=refine_ms,
                    watch=LAYOUT_WATCH)
+    edit_options(dev, ebinding, eparams, verts, faces, editable, ring,
+                 turntable, blends)
     return launches
+
+
+def edit_options(dev, ebinding, eparams, verts, faces, editable, ring,
+                 turntable, blends):
+    """The edit stage's options at small depth: the inpaint with a
+    HeuristicSegmenter (the edge fix of the joint front/back views), the
+    refine with an LPIPS term, and LocalMeshEditing.localize on the
+    icosphere from 3 ring views."""
+    from youreditableavatar_tpu_torch import _kernels
+    from youreditableavatar_tpu_torch.guidance.stub import StubInpainter
+    from youreditableavatar_tpu_torch.models.textured_mesh import (
+        TexturedMeshModel)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import (
+        MeshRasterConfig, rasterize_mesh)
+    from youreditableavatar_tpu_torch.stages.edit_texture import (
+        InpaintConfig, InpaintTrainer, RefineConfig, RefineTrainer)
+    from youreditableavatar_tpu_torch.stages.localization import (
+        HeuristicSegmenter, LocalizationConfig, LocalMeshEditing)
+
+    mcfg = MeshRasterConfig()
+
+    class Counting(HeuristicSegmenter):
+        """The stand-in segmenter, counting its calls and masked pixels."""
+
+        def __init__(self, mode):
+            super().__init__(mode)
+            self.calls = []
+
+        def segment(self, image, prompt):
+            mask = super().segment(image, prompt)
+            self.calls.append(int(mask.sum()))
+            return mask
+
+    seg = Counting("center")
+    model = TexturedMeshModel(verts, faces, editable, mcfg, device=dev)
+    a, b, c = EDIT_OPTION_LADDER
+    inpaint = InpaintTrainer(
+        ebinding, eparams.copy(), model, ring, StubInpainter(), "a red hat",
+        "blurry", InpaintConfig(iters_first=a, iters_second=b, iters_rest=c),
+        segmenter=seg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint.inpaint_training(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    t_inpaint = time.perf_counter() - t0
+    losses = [h["loss"] for h in inpaint.history]
+    print(f"  inpaint with the segmenter edge fix: {len(ring)} views, ladder "
+          f"{EDIT_OPTION_LADDER}, {t_inpaint:.2f} s; segmenter calls "
+          f"{len(seg.calls)} (person pixels {seg.calls}); last fit loss per "
+          f"view " + ", ".join(f"{l:.5f}" for l in losses) + f"; painted "
+          f"vertices {int(model.painted.sum())}")
+    if not (len(seg.calls) == 2 and all(seg.calls)
+            and all(np.isfinite(losses)) and model.painted.sum() > 0):
+        raise AssertionError("the inpaint's edge fix did not run as expected")
+
+    refine = RefineTrainer(ebinding, inpaint.params, turntable, blends,
+                           RefineConfig(num_iterations=EDIT_OPTION_REFINE,
+                                        lambda_perceptual=0.1), device=dev)
+    times, losses = [], []
+    rng = np.random.default_rng(3)
+    for _ in range(EDIT_OPTION_REFINE):
+        vi = int(rng.integers(0, len(turntable)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(refine.step(vi)[0]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    refine_ms = statistics.median(times)
+    print(f"  perceptual refine (lambda_perceptual 0.1, LPIPS at {WIDTH}²): "
+          f"step median {refine_ms:.3f} ms over {EDIT_OPTION_REFINE} "
+          f"synchronised steps (min {min(times):.3f}, max {max(times):.3f}); "
+          f"losses {losses[0]:.5f} … {losses[-1]:.5f}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("a perceptual refine loss is not finite")
+    profile_window(lambda: refine.step(0), iters=3, step_ms=refine_ms,
+                   watch=LAYOUT_WATCH)
+
+    # Localization: white background, grey coverage from each view's mesh
+    # raster, the upper band segmented.
+    cams = ring[:3]
+    vt = torch.as_tensor(verts, dtype=torch.float32, device=dev)
+    ft = torch.as_tensor(faces, dtype=torch.int32, device=dev)
+    images = []
+    for cam in cams:
+        fid = rasterize_mesh(vt, ft, cam.raster_camera(dev),
+                             mcfg).face_id.cpu().numpy()
+        img = np.ones((HEIGHT, WIDTH, 3), np.float32)
+        img[fid >= 0] = 0.5
+        images.append(img)
+    loc = LocalMeshEditing(verts, faces, HeuristicSegmenter("upper"),
+                           LocalizationConfig(mesh_cfg=mcfg), device=dev)
+    before = _kernels.LAUNCHES["mesh_resolve"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = loc.localize(cams, images, "the hat")
+    torch.cuda.synchronize()
+    t_loc = (time.perf_counter() - t0) * 1e3
+    k5 = _kernels.LAUNCHES["mesh_resolve"] - before
+    fmask = info["editing_mask_faces"] > 0.5
+    fz = verts[faces].mean(1)[:, 2]
+    print(f"  localize on {len(faces)} faces from {len(cams)} views at "
+          f"{WIDTH}²: {t_loc:.1f} ms (synchronised; mesh_resolve launches "
+          f"{k5}); {int(fmask.sum())} faces and "
+          f"{int(info['editing_mask'].sum())} vertices selected, mean face z "
+          f"{fz[fmask].mean():.3f} against {fz.mean():.3f} overall")
+    if not (k5 == len(cams) and 0 < fmask.sum() < len(faces)
+            and fz[fmask].mean() > fz.mean()):
+        raise AssertionError("the localization did not select the upper band")
 
 
 def phase_spatial(dev, kernels):
@@ -1760,18 +1922,7 @@ def phase_spatial(dev, kernels):
         "shape init, 1 SDF step then 1 normal step")
 
     # ---- SDS geometry edit (stage 1), bench_spatial's operating point ----
-    field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.45))
-    params = field.init_params(0, device=dev)
-    geometry = TetGeometry(field, SPATIAL_GRID, device=dev)
-    with torch.no_grad():
-        mt = geometry.isosurface(params)
-        fc = mt.verts[mt.faces.long()].mean(1)
-        edit_faces = (fc[:, 2] > EDIT_CAP_Z) & mt.faces_valid
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    part = geometry.partition_init(params, edit_faces, frozen_mt=mt)
-    torch.cuda.synchronize()
-    t_part = time.perf_counter() - t0
+    field, params, geometry, part, mt, edit_faces, t_part = edit_field(dev)
     prior = StubDiffusionPrior(device=dev)
     guidance = SDSGuidance(prior, SDSConfig(guidance_scale=7.5))
     cache = kernels.BUILD_DIR / "text_embeddings"
@@ -1827,6 +1978,246 @@ def phase_spatial(dev, kernels):
     if not (np.isfinite(moved) and moved > 0):
         raise AssertionError("the edit did not move the parameters")
     return dict(kernels.LAUNCHES)
+
+
+def edit_field(dev):
+    """`scripts/bench_spatial.py`'s operating point at full width: a fresh
+    sphere field (16 levels × 2^19), grid 64, the cap z > EDIT_CAP_Z of its
+    isosurface partitioned. Returns (field, params, geometry, partition,
+    isosurface, editable faces, partition seconds)."""
+    from youreditableavatar_tpu_torch.models.geometry import TetGeometry
+    from youreditableavatar_tpu_torch.models.sdf import SDFField, SDFFieldConfig
+
+    field = SDFField(SDFFieldConfig(sdf_bias="sphere", sdf_bias_radius=0.45))
+    params = field.init_params(0, device=dev)
+    geometry = TetGeometry(field, SPATIAL_GRID, device=dev)
+    with torch.no_grad():
+        mt = geometry.isosurface(params)
+        fc = mt.verts[mt.faces.long()].mean(1)
+        edit_faces = (fc[:, 2] > EDIT_CAP_Z) & mt.faces_valid
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    part = geometry.partition_init(params, edit_faces, frozen_mt=mt)
+    torch.cuda.synchronize()
+    return (field, params, geometry, part, mt, edit_faces,
+            time.perf_counter() - t0)
+
+
+def check_lpips(dev):
+    """LPIPS on the card (f32, cuDNN TF32 off) against the plain path in
+    f64 on the CPU at 1 × LPIPS_CHECK_SIZE² (same weights): the value
+    within LPIPS_RTOL, the gradient with respect to `pred` within
+    LPIPS_GRAD_RTOL_OF_MAX of its largest entry. Printed beside it, not
+    held: the same gradient on the card with TF32 on, and the CPU's f32
+    gradient with oneDNN's convolutions on and off. Then forward +
+    backward timed at 1 × WIDTH². Returns the LPIPS module on the card."""
+    from youreditableavatar_tpu_torch.ops.lpips import LPIPS, lpips
+
+    gen = torch.Generator().manual_seed(7)
+    pred, target = (torch.rand((1, LPIPS_CHECK_SIZE, LPIPS_CHECK_SIZE, 3),
+                               generator=gen) for _ in range(2))
+    lp_cpu = LPIPS(seed=0, device="cpu")
+
+    def value_grad(where, dtype=torch.float32):
+        vgg = [{k: v.to(where, dtype) for k, v in p.items()}
+               for p in lp_cpu.vgg]
+        heads = [h.to(where, dtype) for h in lp_cpu.heads]
+        x = pred.to(where, dtype).detach().requires_grad_()
+        val = lpips(vgg, heads, x, target.to(where, dtype))
+        val.backward()
+        return float(val.detach()), x.grad.cpu().double()
+
+    v64, g64 = value_grad("cpu", torch.float64)
+    scale = float(g64.abs().max())
+
+    def grad_err(g):
+        return float((g - g64).abs().max()) / scale
+
+    vk, gk = value_grad(dev)
+    rel, err_card = abs(vk - v64) / abs(v64), grad_err(gk)
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        err_tf32 = grad_err(value_grad(dev)[1])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = {}
+    for onednn in (True, False):
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            cpu[onednn] = grad_err(value_grad("cpu")[1])
+    lp = LPIPS(seed=0, device=dev)
+    big = [torch.rand((1, HEIGHT, WIDTH, 3), device=dev) for _ in range(2)]
+
+    def fwd_bwd():
+        x = big[0].detach().requires_grad_()
+        lp(x, big[1]).backward()
+    ms = each_device_ms(fwd_bwd, 10)
+    print(f"  LPIPS at {LPIPS_CHECK_SIZE}², card f32 (cuDNN TF32 {tf32}) vs "
+          f"CPU f64: value {vk:.6f} vs {v64:.6f} (relative {rel:.2e}, "
+          f"tolerance {LPIPS_RTOL}); gradient max error of its largest "
+          f"entry {err_card:.2e} (tolerance {LPIPS_GRAD_RTOL_OF_MAX}); not "
+          f"held: card with TF32 on {err_tf32:.2e}, CPU f32 with oneDNN "
+          f"{cpu[True]:.2e}, without {cpu[False]:.2e}; forward + backward "
+          f"at 1 × {WIDTH}²: median {statistics.median(ms):.3f} ms of device "
+          f"time (min {min(ms):.3f}, max {max(ms):.3f})")
+    if not (rel <= LPIPS_RTOL and err_card <= LPIPS_GRAD_RTOL_OF_MAX):
+        raise AssertionError("LPIPS on the card differs from the f64 path")
+    return lp
+
+
+def phase_du(dev, kernels):
+    """The stage-1 edit in the "du" mode at full width: SDSDUGuidance with
+    the stub prior and an LPIPS perceptual term, DU_STEPS steps from step
+    0, refresh steps and pull steps timed apart."""
+    from youreditableavatar_tpu_torch.data.camera_sampler import (
+        RandomCameraConfig)
+    from youreditableavatar_tpu_torch.guidance.prompts import PromptProcessor
+    from youreditableavatar_tpu_torch.guidance.sds import (
+        SDSDUConfig, SDSDUGuidance)
+    from youreditableavatar_tpu_torch.guidance.stub import (
+        StubDiffusionPrior, StubPromptEncoder)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
+    from youreditableavatar_tpu_torch.stages.spatial import (
+        HumanEditConfig, HumanEditTrainer)
+
+    lp = check_lpips(dev)
+    field, params, geometry, part, mt, edit_faces, t_part = edit_field(dev)
+    guidance = SDSDUGuidance(StubDiffusionPrior(device=dev),
+                             SDSDUConfig(per_editing_step=DU_PER_EDIT),
+                             perceptual_fn=lp)
+    prompts = PromptProcessor("a red down jacket", "low quality",
+                              StubPromptEncoder(device=dev),
+                              cache_dir=str(kernels.BUILD_DIR
+                                            / "text_embeddings"),
+                              model_name="bench-stub")
+    ecfg = HumanEditConfig(use_sds=False, camera=RandomCameraConfig(
+        height=HEIGHT, width=WIDTH))
+    mcfg = MeshRasterConfig()
+    trainer = HumanEditTrainer(field, geometry, part, params, guidance,
+                               prompts, prompts, ecfg, mcfg, device=dev)
+    print(f"  du edit: isosurface {int(mt.num_faces)} faces, "
+          f"{int(edit_faces.sum())} editable; partition_init {t_part:.2f} s; "
+          f"per_editing_step {DU_PER_EDIT}, {ecfg.du_view_buckets} azimuth "
+          f"buckets, LPIPS perceptual term")
+
+    # Which steps refresh (maybe_refresh is called only when one is due)
+    # and which bucket each step visits (from the sampled azimuth).
+    refreshed, azimuths = [], []
+    refresh, sample = guidance.maybe_refresh, trainer.sampler.sample
+
+    def logged_refresh(*args, **kw):  # args 6, 7: the bucket, the step
+        refreshed.append((args[7], args[6]))
+        return refresh(*args, **kw)
+
+    def logged_sample(step):
+        batch = sample(step)
+        azimuths.append(float(batch.azimuth_deg[0]))
+        return batch
+
+    guidance.maybe_refresh, trainer.sampler.sample = logged_refresh, logged_sample
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    recs, times = [], []
+    for _ in range(DU_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs.append(trainer.train_step(seed=1))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    guidance.maybe_refresh, trainer.sampler.sample = refresh, sample
+
+    buckets = [int(a % 360.0 / 360.0 * ecfg.du_view_buckets)
+               % ecfg.du_view_buckets for a in azimuths]
+    steps_refreshed = {st for st, _ in refreshed}
+    due, seen = [], set()
+    for st, b in enumerate(buckets):
+        due.append(st % DU_PER_EDIT == 0 or b not in seen)
+        seen.add(b)
+    refresh_ms = [t for st, t in enumerate(times) if st in steps_refreshed]
+    pull_ms = [t for st, t in enumerate(times) if st not in steps_refreshed]
+    moved = float((trainer.params.grid.detach()
+                   - trainer.frozen_params.grid).abs().sum())
+    def stats(ms):
+        return (f"median {statistics.median(ms):.3f} ms over {len(ms)} (min "
+                f"{min(ms):.3f}, max {max(ms):.3f})" if ms else "none")
+
+    print(f"  du edit, {DU_STEPS} steps from step 0: refresh steps "
+          f"{sorted(steps_refreshed)}: {stats(refresh_ms)}; pull steps: "
+          f"{stats(pull_ms)}; loss first "
+          f"{recs[0]['loss']:.4f} last {recs[-1]['loss']:.4f}; du_f "
+          f"{recs[-1]['du_f']:.4f}, du_l1 {recs[-1]['du_l1']:.4f}, recon "
+          f"{recs[-1]['recon']:.3g}, nc {recs[-1]['nc']:.5f}; buckets visited "
+          f"{sorted(set(buckets))}, cache entries "
+          f"{sorted(guidance.edited_images)}; launches "
+          f"{json.dumps({k: launches[k] for k in ('hash_scatter', 'mesh_resolve')})}"
+          f"; Σ|Δ table| {moved:.6g}; peak memory {peak:.0f} MiB")
+    if not all(np.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError("a non-finite du loss")
+    if not (np.isfinite(moved) and moved > 0):
+        raise AssertionError("the du edit did not move the parameters")
+    if sorted(guidance.edited_images) != sorted(set(buckets)):
+        raise AssertionError("the edit cache does not hold one entry per "
+                             "bucket visited")
+    if [st for st, d in enumerate(due) if d] != sorted(steps_refreshed):
+        raise AssertionError("the edit cache did not refresh on the "
+                             "per_editing_step cadence")
+    if launches["hash_scatter"] != K4_PER_EDIT_STEP * DU_STEPS:
+        raise AssertionError("hash_scatter did not launch 3 times per du step")
+    if launches["mesh_resolve"] < DU_STEPS + len(steps_refreshed):
+        raise AssertionError("a du step's normal maps skipped mesh_resolve")
+    profile_window(lambda: trainer.train_step(seed=1), iters=5,
+                   step_ms=statistics.median(times),
+                   watch=("scatter_kernel", "resolve_kernel"))
+    return launches
+
+
+def phase_mesh(dev, kernels):
+    """`models/mesh.Mesh` (UV atlas, tangents) and `ops/shape_loss`'s
+    winding numbers on the 81,920-face icosphere."""
+    from youreditableavatar_tpu_torch.models.mesh import Mesh
+    from youreditableavatar_tpu_torch.ops.shape_loss import (
+        default_chunk, winding_number)
+
+    verts, faces = icosphere(FIT_SUBDIV)
+    mesh = Mesh(verts.astype(np.float32), faces.astype(np.int64))
+    t0 = time.perf_counter()
+    mesh.unwrap_uv()
+    t_uv = time.perf_counter() - t0
+    tng = mesh.v_tng
+    t_tng = time.perf_counter() - t0 - t_uv
+    uv, ft = mesh.v_tex, mesh.t_tex_idx
+    dots = float(np.abs(np.sum(tng * mesh.v_nrm, -1)).max())
+    print(f"  Mesh on {len(faces)} faces: unwrap_uv {t_uv:.2f} s ({len(uv)} "
+          f"atlas vertices, uv in [{uv.min():.4f}, {uv.max():.4f}]); tangents "
+          f"{t_tng:.3f} s, max |t·n| {dots:.2e}")
+    if not (uv.min() >= 0 and uv.max() <= 1 and ft.shape == faces.shape
+            and dots < 1e-3):
+        raise AssertionError("the UV atlas or its tangents are wrong")
+
+    rng = np.random.default_rng(9)
+    d = rng.normal(size=(WINDING_POINTS, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = np.concatenate([rng.uniform(0.0, 0.7, WINDING_POINTS // 2),
+                        rng.uniform(0.9, 1.5, WINDING_POINTS // 2)])
+    pts = torch.as_tensor(d * r[:, None], dtype=torch.float32, device=dev)
+    vt = torch.as_tensor(verts, dtype=torch.float32, device=dev)
+    ftt = torch.as_tensor(faces, dtype=torch.int32, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms = device_ms(lambda: winding_number(pts, vt, ftt), 1, warmup=1)
+    w = winding_number(pts, vt, ftt).cpu().numpy()
+    half = WINDING_POINTS // 2
+    err_in, err_out = np.abs(w[:half] - 1).max(), np.abs(w[half:]).max()
+    print(f"  winding numbers of {WINDING_POINTS} points (half inside radius "
+          f"0.7, half outside 0.9 of the 0.8 sphere) against {len(faces)} "
+          f"faces: max |w - 1| inside {err_in:.2e}, max |w| outside "
+          f"{err_out:.2e}; {ms:.3f} ms in chunks of {default_chunk(len(faces))}"
+          f" points; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    if not (err_in < WINDING_ATOL and err_out < WINDING_ATOL):
+        raise AssertionError("winding numbers are not near 1 inside and 0 "
+                             "outside")
 
 
 def _free_port() -> int:
@@ -2016,7 +2407,16 @@ def run_phase(name, fn, failures):
     return result
 
 
-def main() -> int:
+def main(argv) -> int:
+    # `--phases a,b` runs only those phases after device and build (a
+    # development or comparison run); the kernels line then has no
+    # launches for the phases left out.
+    only = None
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        only = argv[1].split(",")
+    elif argv:
+        print("usage: chip_smoke.py [--phases name,...]", file=sys.stderr)
+        return 1
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2066,10 +2466,17 @@ def main() -> int:
         "fit": lambda: phase_fit(dev, _kernels),
         "edit": lambda: phase_edit(dev, _kernels),
         "spatial": lambda: phase_spatial(dev, _kernels),
+        "du": lambda: phase_du(dev, _kernels),
+        "mesh": lambda: phase_mesh(dev, _kernels),
         "sharded": lambda: phase_sharded(dev, _kernels),
     }
-    results = {name: run_phase(name, fn, failures)
-               for name, fn in phases.items()}
+    chosen = list(phases) if only is None else only
+    unknown = sorted(set(chosen) - set(phases))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}", file=sys.stderr)
+        return 1
+    results = {name: run_phase(name, phases[name], failures)
+               for name in chosen}
     if failures:
         print(f"chip_smoke: failed phases: {failures}", file=sys.stderr)
         return 1
@@ -2078,13 +2485,13 @@ def main() -> int:
                  "composite_backward_pairs": "sharded"}
 
     kernels = []
-    for name in _kernels.KERNEL_NAMES:
+    for name in _kernels.KERNEL_NAMES if "kernels" in results else ():
         r = report[name]
         source, replaces = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": results[main_path.get(name, "fit")][name],
+            "launches": (results.get(main_path.get(name, "fit")) or {}).get(name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r.get("library_ms"),
@@ -2099,4 +2506,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -16,9 +16,11 @@ import torch
 
 from torch_port_helpers import (
     EXPAND_CASES,
+    HIST_CASES,
     RANK_CASES,
     cuda_device,  # noqa: F401  (fixture)
     expand_case,
+    hist_case,
     jax_camera,
     rank_case,
     random_scene,
@@ -409,3 +411,35 @@ def test_rank_kernel_matches_plain_on_card(cuda_device, case):
                                 tile.shape[0] + (nbins - 1) * 128)
     assert torch.equal(tc.rank_destinations(tile, ext),
                        tc.rank_destinations_plain(tile, ext))
+
+
+@pytest.mark.parametrize("case", list(HIST_CASES))
+def test_histogram_cases_match_jax(case):
+    """K3a's cases on the CPU (the plain version) against the JAX
+    `tile_histogram` (its Pallas kernel interpreted), bit for bit, where
+    the JAX package serves the bin count (≤ its MAX_BINS of 512); past
+    that, where it serves no such tile grid, against numpy."""
+    from youreditableavatar_tpu.ops.gaussian_raster import counting as jc
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import counting as tc
+
+    tile, nbins = hist_case(case)
+    hist = tc.tile_histogram(torch.tensor(tile), nbins - 1).numpy()
+    if nbins <= jc.MAX_BINS:
+        want = np.asarray(jc.tile_histogram(jnp.asarray(tile), nbins - 1))
+    else:
+        want = np.bincount(tile, minlength=nbins)
+    np.testing.assert_array_equal(hist, want)
+    if case == "max_bins":
+        assert nbins == tc.MAX_BINS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(HIST_CASES))
+def test_histogram_kernel_matches_plain_on_card(cuda_device, case):
+    """K3a bit for bit against its plain version on each case."""
+    from youreditableavatar_tpu_torch.ops.gaussian_raster import counting as tc
+
+    tile, nbins = hist_case(case)
+    tile = torch.tensor(tile, device=cuda_device)
+    assert torch.equal(tc.tile_histogram(tile, nbins - 1),
+                       tc.tile_histogram_plain(tile, nbins - 1))

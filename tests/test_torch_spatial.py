@@ -497,24 +497,19 @@ class TestHumanEdit:
                                    atol=1e-4)
 
 
-def test_unported_options_raise(tmp_path):
-    _, tprior = _priors()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tsds.SDSDUGuidance(tprior)
-    jg, tg, jp, tp = small_geometries()
-    _, tpart, _ = partitions(jg, tg, jp, tp)
-    _, tpp = _prompts(tmp_path)
-    guidance = tsds.SDSGuidance(tprior)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tsp.HumanEditTrainer(tg.field, tg, tpart, tp, guidance, tpp, None,
-                             tsp.HumanEditConfig(use_sds=False), device="cpu")
-
-
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the no-card default")
     from youreditableavatar_tpu_torch.models.geometry import TetGeometry
+    from youreditableavatar_tpu_torch.models.mesh import Mesh
     from youreditableavatar_tpu_torch.models.sdf import sdf_params_from_numpy
+    from youreditableavatar_tpu_torch.ops.lpips import LPIPS
+    from youreditableavatar_tpu_torch.ops.shape_loss import ShapeLoss
+    from youreditableavatar_tpu_torch.stages.localization import (
+        HeuristicSegmenter, LocalMeshEditing)
+
+    tet = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]], np.float32)
+    faces = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]])
 
     _, tf = small_fields()
     cam = tcs.RandomCameraSampler(tcs.RandomCameraConfig(**CAM)).sample()
@@ -525,6 +520,10 @@ def test_entry_points_default_to_cuda():
         lambda: tsp.ShapeInitializer(tf, None),
         lambda: cam.local[0].raster_camera(),
         lambda: sdf_params_from_numpy({"grid": np.zeros((1, 64, 2)), "mlp": []}),
+        lambda: LPIPS(),
+        lambda: ShapeLoss(tet, faces, proximal_surface=0.0),
+        lambda: LocalMeshEditing(tet, faces, HeuristicSegmenter()),
+        lambda: Mesh(tet, faces).normal_consistency(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -420,3 +420,30 @@ def rank_case(name):
     else:
         tile = np.full(p, 5 if kind == "one" else nbins - 1)
     return tile.astype(np.int32), nbins
+
+
+# K3a's card cases: name → (pairs, bins, how the tile ids are drawn): a
+# block count that is not a multiple of the cluster's size, a single
+# block, every pair in the sentinel bin, 1024 blocks at 257 bins, and
+# bin counts past 8-CTA clusters (clusters of 4) up to MAX_BINS.
+HIST_CASES = {
+    "13_blocks": (13 * 1024, 257, "random"),
+    "one_block": (1024, 257, "random"),
+    "all_sentinel": (184_320, 257, "sentinel"),
+    "1024_blocks": (1 << 20, 257, "random"),
+    "16385_bins": (1 << 20, 16_385, "random"),
+    "40001_bins": (64 * 1024, 40_001, "random"),
+    "max_bins": (64 * 1024, 232448 // 4, "random"),
+}
+
+
+def hist_case(name):
+    """((P,) int32 tile ids, bins) of K3a's case `name`; the last bin is
+    the sentinel's."""
+    p, nbins, kind = HIST_CASES[name]
+    rng = np.random.default_rng(p + nbins)
+    if kind == "random":
+        tile = rng.integers(0, nbins, p)
+    else:
+        tile = np.full(p, nbins - 1)
+    return tile.astype(np.int32), nbins

@@ -12,10 +12,22 @@
 // block's global loads and barriers.
 //
 // Design:
-//  * K3a: one CTA per 1024 pairs builds a shared-memory histogram with
-//    shared-int atomics, then adds each non-zero bin to the global counts
-//    with one atomicAdd. Integer sums are exact, so the result is bit-exact
-//    whatever order the atomics land in.
+//  * K3a: one CTA of 1024 threads per 4096 pairs; each thread reads four
+//    pairs with one int4 load into the CTA's shared histogram. A warp
+//    whose 32 pairs share one bin — the sentinel's runs: culled slots and
+//    the slots past the total — adds them with one shared atomic, not 32
+//    (`__all_sync` against lane 0's bin; grouping every bin with
+//    `__match_any_sync` measured slower than it saved on the render's
+//    pairs, which are mostly distinct within a warp). Each non-zero bin
+//    then takes one global atomicAdd. The C entry clears the counts with
+//    one cudaMemsetAsync on the stream (no state kept between calls).
+//    Integer sums are exact, so the result is bit-exact whatever order
+//    the atomics land in. The global atomics never bounded this kernel:
+//    it is latency — the block's load, the shared atomics and the
+//    barriers. A thread-block cluster of up to 8 CTAs reduced over
+//    distributed shared memory (one global atomic per bin per cluster)
+//    measured slower: each cluster barrier costs about as much as this
+//    kernel's whole body (PERF.md).
 //  * K3b: the rank of a pair must be stable in pair order and bit-identical
 //    to the sort-based layout, so no atomics touch it. One pass: the TPU
 //    kernel carries a per-bin running count from one grid step to the
@@ -54,7 +66,7 @@
 
 namespace {
 
-constexpr int kBlock = 1024;  // pairs per CTA (K3a: one a thread)
+constexpr int kBlock = 1024;  // pairs per CTA of K3b; p is a multiple of it
 constexpr int kMaxShared = 232448;  // a CTA's shared memory on sm_90
 // K3b: 512 threads a CTA, two pairs a thread, so that four CTAs share an
 // SM and a budget of up to 528 blocks runs in one wave on 132 SMs.
@@ -82,19 +94,37 @@ cudaError_t allow_shared(const void* fn, unsigned long long* done) {
   return err;
 }
 
-__global__ void __launch_bounds__(kBlock)
-hist_kernel(const int* __restrict__ tile, int* __restrict__ counts, int p,
-            int nbins) {
+// K3a: 1024 threads a CTA, four pairs a thread (one int4 load).
+constexpr int kHistThreads = 1024;
+constexpr int kHistBlock = 4 * kHistThreads;  // pairs per CTA
+
+// `quads` = p / 4 int4 words of tile ids; a warp's lanes lie all inside
+// or all past them (p is a multiple of 1024).
+__global__ void __launch_bounds__(kHistThreads)
+hist_kernel(const int4* __restrict__ tile, int* __restrict__ counts,
+            int quads, int nbins) {
   extern __shared__ int sh[];
-  for (int i = threadIdx.x; i < nbins; i += blockDim.x) sh[i] = 0;
+  for (int i = threadIdx.x; i < nbins; i += kHistThreads) sh[i] = 0;
   __syncthreads();
-  const int idx = blockIdx.x * kBlock + threadIdx.x;
-  if (idx < p) {
-    const int t = tile[idx];
-    if (t >= 0 && t < nbins) atomicAdd(&sh[t], 1);
+  const int q = blockIdx.x * kHistThreads + threadIdx.x;
+  if (q < quads) {  // uniform over the warp
+    const int4 v = tile[q];
+    const int t[4] = {v.x, v.y, v.z, v.w};
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int bin = t[r] >= 0 && t[r] < nbins ? t[r] : -1;
+      // A warp whose 32 pairs share one bin (the sentinel's runs) adds
+      // them with one atomic; otherwise each lane adds its own.
+      if (__all_sync(0xffffffffu, bin == __shfl_sync(0xffffffffu, bin, 0))) {
+        if (lane == 0 && bin >= 0) atomicAdd(&sh[bin], 32);
+      } else if (bin >= 0) {
+        atomicAdd(&sh[bin], 1);
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < nbins; i += blockDim.x) {
+  for (int i = threadIdx.x; i < nbins; i += kHistThreads) {
     const int c = sh[i];
     if (c) atomicAdd(&counts[i], c);
   }
@@ -244,8 +274,6 @@ rank_lookback_kernel(const int* __restrict__ tile,
   }
 }
 
-unsigned long long hist_shared = 0;
-
 template <bool kPerWarp>
 cudaError_t launch_ranks(const int* tile, const int* astart_ext, int* status,
                          int* dst, int p, int nbins, cudaStream_t s) {
@@ -269,16 +297,22 @@ cudaError_t launch_ranks(const int* tile, const int* astart_ext, int* status,
 
 }  // namespace
 
+// counts (nbins int32) = pairs per bin of the (p,) tile ids, p a multiple
+// of 1024 and `tile` 16-byte aligned; the counts are cleared here on the
+// stream.
 extern "C" int yea_tile_histogram(const int* tile, int* counts, int p,
                                   int nbins, void* stream) {
-  const size_t smem = static_cast<size_t>(nbins) * sizeof(int);
+  static unsigned long long shared_set = 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = allow_shared(reinterpret_cast<const void*>(hist_kernel),
-                                 &hist_shared);
+                                 &shared_set);
   if (err != cudaSuccess) return err;
-  const int nblocks = (p + kBlock - 1) / kBlock;
+  err = cudaMemsetAsync(counts, 0, static_cast<size_t>(nbins) * sizeof(int), s);
+  if (err != cudaSuccess) return err;
+  const int nblocks = (p + kHistBlock - 1) / kHistBlock;
   if (nblocks > 0)
-    hist_kernel<<<nblocks, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-        tile, counts, p, nbins);
+    hist_kernel<<<nblocks, kHistThreads, static_cast<size_t>(nbins) * sizeof(int),
+                  s>>>(reinterpret_cast<const int4*>(tile), counts, p / 4, nbins);
   return cudaGetLastError();
 }
 

@@ -8,12 +8,14 @@ Counterpart of `youreditableavatar_tpu/guidance/sds.py`:
     0.5·‖z − sg(z − grad)‖²/B so autograd delivers exactly that gradient;
   * NaN-guard + optional gradient clipping.
 
+  * the multi-step "du" edit mode (`SDSDUGuidance`): a per-view cache of
+    multi-step-denoised edits of the render, refreshed every
+    `per_editing_step` steps, and the latent-MSE + L1 + perceptual pulls
+    toward it.
+
 Where the JAX code draws the timestep and the noise from a PRNG key, these
 take a `torch.Generator` — or the draws themselves (`t=`, `noise=`), which
 is how the trainer's single seam of randomness hands them in.
-
-The multi-step "du" edit mode (`SDSDUConfig`, `SDSDUGuidance`) is not
-ported yet: it comes with the next slice and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -155,10 +157,6 @@ class PerpNegSDSGuidance(SDSGuidance):
         return self._loss(latents, eps_hat, noise, acp, t)
 
 
-_DU_LATER = ("the multi-step 'du' edit mode (SDSDUGuidance) is not ported "
-             "yet; it comes with the next slice of the port")
-
-
 @dataclasses.dataclass(frozen=True)
 class SDSDUConfig(SDSConfig):
     """Multi-step "du" edit-mode settings."""
@@ -169,8 +167,95 @@ class SDSDUConfig(SDSConfig):
 
 
 class SDSDUGuidance(SDSGuidance):
-    """The reference's multi-step "du" edit mode — not ported yet."""
+    """SDS guidance with the reference's multi-step "du" edit mode.
+
+    Every `per_editing_step` steps a cached per-view "edited image" is
+    refreshed by multi-step denoising of the render's noised latents under
+    CFG; between refreshes the render is pulled toward the cache with
+    latent-MSE + L1 + perceptual losses.
+
+    The cache is host-side state (a dict keyed by view index). The
+    multi-step edit runs under `torch.no_grad()` on detached inputs, so
+    only the three comparison losses are differentiated. The perceptual
+    term is any `perceptual_fn(pred, target)`, e.g. `ops.lpips.LPIPS`.
+    """
 
     def __init__(self, prior, cfg: SDSDUConfig = SDSDUConfig(),
                  perceptual_fn=None):
-        raise NotImplementedError(_DU_LATER)
+        super().__init__(prior, cfg)
+        self.edited_images: Dict[int, Tensor] = {}
+        self.perceptual_fn = perceptual_fn
+
+    def maybe_refresh(
+        self,
+        images: Tensor,
+        cond_emb: Tensor,
+        uncond_emb: Tensor,
+        generator: Optional[torch.Generator],
+        min_t: int,
+        max_t: int,
+        view_index: int,
+        global_step: int,
+        t: Optional[int] = None,
+    ) -> Tensor:
+        """Refresh the per-view edited-image cache if due; return the cached
+        edit for `view_index`.
+
+        `images` must be the CURRENT render (it is detached here). The
+        timestep `t` ~ U{min_t..max_t} is drawn from `generator` unless
+        given.
+        """
+        cfg: SDSDUConfig = self.cfg  # type: ignore[assignment]
+        refresh = (view_index not in self.edited_images
+                   or global_step % cfg.per_editing_step == 0)
+        if refresh:
+            if t is None:
+                t = int(torch.randint(min_t, max_t + 1, (),
+                                      generator=generator))
+            with torch.no_grad():
+                latents = self.prior.encode_images(images.detach(), generator)
+                edit_latents = self.prior.edit_latents(
+                    latents, int(t), cond_emb, uncond_emb, generator,
+                    cfg.du_guidance_scale, cfg.steps_divisor)
+                edit = self.prior.decode_latents(edit_latents)
+                if edit.shape != images.shape:
+                    from youreditableavatar_tpu_torch.stages.edit_texture \
+                        import _resize_bilinear
+
+                    h, w = images.shape[1:3]
+                    edit = torch.stack([_resize_bilinear(e, h, w)
+                                        for e in edit])
+            self.edited_images[view_index] = edit.detach()
+        return self.edited_images[view_index]
+
+    def du_loss_terms(self, images: Tensor, gt: Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      ) -> Dict[str, Tensor]:
+        """Differentiable du comparison losses against a cached edit `gt`:
+        latent MSE + image L1 (+ perceptual, with a `perceptual_fn`)."""
+        latents = self.prior.encode_images(images, generator)
+        with torch.no_grad():
+            gt_latents = self.prior.encode_images(gt.detach(), generator)
+        b = images.shape[0]
+        out = {"loss_f": torch.sum((latents - gt_latents) ** 2) / b,
+               "loss_l1": torch.sum(torch.abs(images - gt)) / b}
+        if self.perceptual_fn is not None:
+            out["loss_p"] = torch.sum(self.perceptual_fn(images, gt)) / b
+        return out
+
+    def du_losses(
+        self,
+        images: Tensor,
+        cond_emb: Tensor,
+        uncond_emb: Tensor,
+        generator: Optional[torch.Generator],
+        min_t: int,
+        max_t: int,
+        view_index: int,
+        global_step: int,
+        t: Optional[int] = None,
+    ) -> Dict[str, Tensor]:
+        """Multi-step edit losses for one view batch (B=1)."""
+        gt = self.maybe_refresh(images, cond_emb, uncond_emb, generator,
+                                min_t, max_t, view_index, global_step, t=t)
+        return self.du_loss_terms(images, gt, generator)

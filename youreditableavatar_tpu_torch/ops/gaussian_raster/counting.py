@@ -5,8 +5,11 @@ whose two Pallas kernels (`_hist_kernel`, `_dst_kernel`) become the CUDA
 kernels of `csrc/counting.cu`:
 
   tile_histogram  (K3a): per-bin counts of the (P,) tile ids, last bin =
-                  sentinel. One CTA per 1024 pairs, shared-memory
-                  histogram, one global atomicAdd per non-zero bin.
+                  sentinel. One CTA per 4096 pairs (one int4 load a
+                  thread): a shared-memory histogram whose warp-uniform
+                  runs (the sentinel's) take one atomic a warp, then one
+                  global atomicAdd per non-zero bin; the counts are
+                  cleared in the kernel's entry.
   counting_layout (K3b): dst[p] = aligned_start[tile[p]] + the stable rank
                   of pair p among the pairs of its tile, in pair order. One
                   pass: each CTA (its block of pairs from an atomic ticket)
@@ -62,7 +65,10 @@ def tile_histogram(tile: Tensor, num_tiles: int) -> Tensor:
     if nbins > MAX_BINS:
         raise ValueError(f"tile_histogram serves ≤ {MAX_BINS - 1} tiles")
     _kernels.check_cuda("tile", tile, torch.int32, 1)
-    counts = torch.zeros(nbins, dtype=torch.int32, device=tile.device)
+    if tile.data_ptr() % 16:
+        raise ValueError("tile must be 16-byte aligned (int4 loads)")
+    # Cleared by the kernel's entry on the stream.
+    counts = torch.empty(nbins, dtype=torch.int32, device=tile.device)
     _kernels.launch("tile_histogram", "yea_tile_histogram", tile.device,
                     tile.data_ptr(), counts.data_ptr(), tile.shape[0], nbins)
     return counts

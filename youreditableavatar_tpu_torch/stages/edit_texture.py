@@ -13,13 +13,17 @@ Counterpart of `youreditableavatar_tpu/stages/edit_texture.py`:
     renders.
   * `RefineTrainer.refined_editing`: promote the 2D disks to the 3D model
     and train on the blended views (l1+dssim, 10× weight on the key views,
-    scaling regularizer).
+    scaling regularizer, and with `lambda_perceptual > 0` an LPIPS term).
+
+With a `segmenter` (any `stages.localization.Segmenter`), the joint
+front/back views blend their guidance only where the painted mask and a
+"person" mask of the inpainted image agree, dilated by 15 px — the edge
+fix for stray background pixels the inpainter painted.
 
 Where the JAX trainers take a PRNG key these take a `torch.Generator` (or
-None) and hand it to the inpainter. Three options keep their place in the
-signatures and raise `NotImplementedError` until their modules are ported:
-the `segmenter` edge fix, `RefineConfig.lambda_perceptual > 0` (LPIPS) and
-`upscale_to_2048=True`.
+None) and hand it to the inpainter. `upscale_to_2048=True` keeps its place
+in the signature and raises `NotImplementedError` until the SDXL
+pipeline is ported.
 """
 
 from __future__ import annotations
@@ -50,6 +54,8 @@ from youreditableavatar_tpu_torch.ops.gaussian_raster import (
     RasterizeConfig,
 )
 from youreditableavatar_tpu_torch.ops.image_losses import dssim, l1_dssim
+from youreditableavatar_tpu_torch.ops.lpips import LPIPS
+from youreditableavatar_tpu_torch.ops.morphology import dilate
 from youreditableavatar_tpu_torch.stages.init_texture import (
     CameraStack,
     auto_size_raster_config,
@@ -154,11 +160,6 @@ class InpaintTrainer:
         segmenter=None,
         device=None,
     ):
-        if segmenter is not None:
-            raise NotImplementedError(
-                "the segmenter edge fix needs stages/localization.py, which "
-                "is not ported yet (ROADMAP.md item 7, slice 7 of the port)"
-            )
         self.device = resolve_device(device)
         self.binding = binding
         self.params = params
@@ -168,6 +169,12 @@ class InpaintTrainer:
         self.prompt = prompt
         self.negative_prompt = negative_prompt
         self.cfg = cfg
+        # Optional stages.localization.Segmenter for the front/back views'
+        # edge fix: the guidance blend mask is intersected with a "person"
+        # mask of the inpainted image and max-pool dilated, so stray
+        # background pixels the inpainter painted outside the subject do
+        # not become targets.
+        self.segmenter = segmenter
         self.train_mask = _edit_param_mask()
         self.governor = BudgetGovernor(
             policy=cfg.overflow_policy, name="tetgs-inpaint"
@@ -302,6 +309,16 @@ class InpaintTrainer:
                 0.0, 1.0)
             # Composite: keep region from the current render.
             m = masks["inpaint_mask_soft"][..., None]
+            if self.segmenter is not None and fb_guidance is not None \
+                    and vi < 2:
+                # Edge fix for the joint views: blend only where the
+                # painted mask ∩ person mask says the subject is, dilated
+                # by a 15-px max-pool.
+                person = torch.as_tensor(
+                    np.asarray(self.segmenter.segment(guidance, "person"),
+                               bool), device=dev)
+                mm = (masks["inpaint_mask"] > 0.5) & person
+                m = dilate(mm, size=15)[..., None]
             target = guidance * m + current * (1 - m)
 
             # Fit the edit gaussians to the composited target inside the
@@ -368,8 +385,8 @@ class InpaintTrainer:
         if upscale_to_2048:
             raise NotImplementedError(
                 "upscale_to_2048 needs guidance/sdxl_pipeline.py "
-                "(sdxl_tile_refine), which is not ported yet (ROADMAP.md "
-                "item 8, slice 8 of the port)"
+                "(sdxl_tile_refine), which is not ported yet (the guidance "
+                "networks, ROADMAP.md §1 item 8)"
             )
         out_images = []
         for gscam in turntable:
@@ -419,11 +436,6 @@ class RefineTrainer:
         cfg: RefineConfig = RefineConfig(),
         device=None,
     ):
-        if cfg.lambda_perceptual > 0:
-            raise NotImplementedError(
-                "lambda_perceptual > 0 needs ops/lpips.py, which is not "
-                "ported yet (ROADMAP.md item 8, slice 8 of the port)"
-            )
         self.device = resolve_device(device)
         self.cfg = cfg
         self.binding, self.params = promote_to_3d(
@@ -449,6 +461,8 @@ class RefineTrainer:
                 )
             )
         self.losses: List[float] = []
+        self._lpips = LPIPS(device=self.device) \
+            if cfg.lambda_perceptual > 0 else None
 
     def _bg(self) -> Tensor:
         return _background(self.cfg.white_background, self.device)
@@ -465,8 +479,11 @@ class RefineTrainer:
         out = render_edit_tetgs(self.binding, self.params,
                                 self.stack.camera(view_idx), self._rcfg(),
                                 self._bg())
-        loss = weight * l1_dssim(out["image"], self.images[view_idx],
-                                 cfg.dssim_factor)
+        target = self.images[view_idx]
+        loss = weight * l1_dssim(out["image"], target, cfg.dssim_factor)
+        if self._lpips is not None:
+            loss = loss + cfg.lambda_perceptual * self._lpips(
+                out["image"][None], target[None])
         if cfg.scaling_reg:
             scales = torch.exp(self.params.log_scales)
             max_v = torch.max(scales, dim=-1).values

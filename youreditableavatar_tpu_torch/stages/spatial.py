@@ -10,7 +10,11 @@ Counterpart of `youreditableavatar_tpu/stages/spatial.py`:
   * `HumanEditTrainer`: per step — sample a local+global camera pair,
     extract the partitioned update surface, render normal maps, SDS on the
     local OR global normal map, the keep-region recon loss, the control-SDF
-    loss and normal consistency, all with `C()` schedules; AdamW.
+    loss and normal consistency, all with `C()` schedules; AdamW. With
+    `use_sds=False` (the "du" edit mode, an `SDSDUGuidance`) the SDS term
+    becomes latent-MSE + L1 + perceptual pulls toward a cached
+    multi-step-denoised edit of the current render, one cache entry per
+    azimuth bucket, refreshed every `per_editing_step` steps.
 
 Each step runs eagerly on the device of the geometry (the hash-grid
 backward is K4, every normal map's z-buffer resolve K5).
@@ -18,15 +22,13 @@ backward is K4, every normal map's z-buffer resolve K5).
 Randomness has one seam per trainer. Every draw the JAX code makes from a
 PRNG key comes from one method that returns it as a tensor:
 `ShapeInitializer.draw` (the pool seed and each step's pool indices) and
-`HumanEditTrainer.draws` (each step's SDS timestep and noise and its recon
-indices), from a `torch.Generator` seeded by (seed, phase, step). Camera
-and host-side draws are numpy, as in the JAX package.
+`HumanEditTrainer.draws` (each step's SDS timestep and noise, its recon
+indices and, in the du mode, the cache refresh's timestep), from a
+`torch.Generator` seeded by (seed, phase, step). Camera and host-side
+draws are numpy, as in the JAX package.
 
 `HumanEditTrainer.save_checkpoint` / `restore_checkpoint` resume a run
 mid-curriculum: a resumed run makes the steps an uninterrupted one makes.
-
-Not ported yet, raising `NotImplementedError`: the "du" edit mode
-(`HumanEditConfig.use_sds=False`).
 """
 
 from __future__ import annotations
@@ -63,8 +65,6 @@ from youreditableavatar_tpu_torch.utils.device import resolve_device
 from youreditableavatar_tpu_torch.utils.optim import parse_optimizer
 from youreditableavatar_tpu_torch.utils.registry import register
 from youreditableavatar_tpu_torch.utils.schedule import C, ScheduleSpec
-
-_NEXT_SLICE = "not ported yet; it comes with the next slice of the port"
 
 
 def _generator(*key: int) -> torch.Generator:
@@ -292,7 +292,12 @@ class HumanEditConfig:
     lambda_normal: ScheduleSpec = 100.0
     lambda_normal_sub: ScheduleSpec = 100.0
     lambda_mask: ScheduleSpec = 100.0
-    # Multi-step "du" edit mode (use_sds=False): not ported yet.
+    # Multi-step "du" edit mode: when use_sds is False the SDS term is
+    # replaced by latent-MSE ("f") + image L1 + perceptual pulls toward a
+    # cached multi-step-denoised edit of the current render, refreshed every
+    # `guidance.cfg.per_editing_step` steps (needs an `SDSDUGuidance`). The
+    # camera stream is random per step, so the cache is keyed by an azimuth
+    # bucket (du_view_buckets sectors).
     use_sds: bool = True
     lambda_f: ScheduleSpec = 1.0
     lambda_l1: ScheduleSpec = 10.0
@@ -325,8 +330,6 @@ class HumanEditTrainer:
         seed: int = 0,
         device=None,
     ):
-        if not cfg.use_sds:
-            raise NotImplementedError(f"the 'du' edit mode is {_NEXT_SLICE}")
         self.device = resolve_device(device)
         self.field = field
         self.geometry = geometry
@@ -376,7 +379,8 @@ class HumanEditTrainer:
 
     def draws(self, seed: int, step: int) -> Dict[str, Tensor]:
         """The step's randomness: the SDS timestep `t` (1,) and latent
-        noise, and the (recon_points,) recon vertex indices."""
+        noise, the (recon_points,) recon vertex indices and, in the du
+        mode, `du_t`, the cache refresh's timestep (an int)."""
         g = _generator(seed, step)
         min_t, max_t = self.guidance.timestep_range(0, step)
         prior = self.guidance.prior
@@ -386,36 +390,64 @@ class HumanEditTrainer:
         t, noise = draw_timestep_noise(shape, min_t, max_t, g, self.device)
         nv = self.geometry.grid_pos.shape[0]
         recon = torch.randint(0, nv, (self.cfg.recon_points,), generator=g)
-        return {"t": t, "noise": noise, "recon_idx": recon.to(self.device)}
+        out = {"t": t, "noise": noise, "recon_idx": recon.to(self.device)}
+        if not self.cfg.use_sds:
+            out["du_t"] = int(torch.randint(min_t, max_t + 1, (),
+                                            generator=g))
+        return out
 
-    def _step(self, use_global, draws, cam_l, cam_g, cond, uncond, weights,
-              min_t, max_t, control_sdf, guide_normal, guide_mask, guide_flag,
-              sdf_cache, refresh_idx, n_active):
-        cfg = self.cfg
-        geometry = self.geometry
+    def _render(self, use_global, cam_l, cam_g, sdf_cache, refresh_idx,
+                n_active):
+        """The edit surface at the live params and its normal maps:
+        (mt, new selection cache, maps, the guided normal image)."""
         field = self.field
         part = self.partition
-        p = self.params
         # Progressive hash-grid band; n_active skips the masked levels.
         lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
               < n_active).to(torch.float32)
-
-        self.optimizer.zero_grad(set_to_none=True)
-        if cfg.sdf_cache_refresh > 0:
-            mt, new_cache = geometry.part_isosurface_cached(
-                p, part, sdf_cache, refresh_idx, level_mask=lm,
+        if self.cfg.sdf_cache_refresh > 0:
+            mt, new_cache = self.geometry.part_isosurface_cached(
+                self.params, part, sdf_cache, refresh_idx, level_mask=lm,
                 n_active=n_active)
         else:
-            mt = geometry.part_isosurface(p, part, level_mask=lm,
-                                          n_active=n_active)
+            mt = self.geometry.part_isosurface(self.params, part,
+                                               level_mask=lm,
+                                               n_active=n_active)
             new_cache = sdf_cache
         maps = render_part_maps(part.keep_mesh, mt, cam_l,
                                 cam_g if use_global else None, self.mesh_cfg)
         normal_img = (maps["global_comp_normal"] if use_global
                       else maps["local_comp_normal"])
-        sds = self.guidance(normal_img[None], cond, uncond, None, min_t, max_t,
-                            t=draws["t"], noise=draws["noise"])
-        loss = weights["sds"] * sds["loss_sds"]
+        return mt, new_cache, maps, normal_img
+
+    def _step(self, use_global, draws, cam_l, cam_g, cond, uncond, weights,
+              min_t, max_t, control_sdf, guide_normal, guide_mask, guide_flag,
+              sdf_cache, refresh_idx, n_active, du_gt=None):
+        cfg = self.cfg
+        geometry = self.geometry
+        field = self.field
+        part = self.partition
+        p = self.params
+        lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
+              < n_active).to(torch.float32)
+
+        self.optimizer.zero_grad(set_to_none=True)
+        mt, new_cache, maps, normal_img = self._render(
+            use_global, cam_l, cam_g, sdf_cache, refresh_idx, n_active)
+        if cfg.use_sds:
+            sds = self.guidance(normal_img[None], cond, uncond, None, min_t,
+                                max_t, t=draws["t"], noise=draws["noise"])
+            loss = weights["sds"] * sds["loss_sds"]
+            guide_aux = {"sds": sds["loss_sds"]}
+        else:
+            # du edit mode: pull the render toward the cached multi-step
+            # edit `du_gt` (refreshed in train_step).
+            du = self.guidance.du_loss_terms(normal_img[None], du_gt[None])
+            loss = (weights["du_f"] * du["loss_f"]
+                    + weights["du_l1"] * du["loss_l1"])
+            if "loss_p" in du:
+                loss = loss + weights["du_p"] * du["loss_p"]
+            guide_aux = {"du_f": du["loss_f"], "du_l1": du["loss_l1"]}
 
         # Surface-aware recon: keep-region vertices must match the frozen
         # field.
@@ -443,7 +475,7 @@ class HumanEditTrainer:
         if use_global:
             pairs = torch.maximum(pairs, maps["global_num_pairs"])
         aux = {
-            "sds": sds["loss_sds"],
+            **guide_aux,
             "recon": loss_recon,
             "control": loss_ctrl,
             "nc": loss_nc,
@@ -512,6 +544,9 @@ class HumanEditTrainer:
             "control": (C(cfg.lambda_sdf_control, 0, step_i)
                         if self.control_sdf is not None else 0.0),
             "nc": C(nc_spec, 0, step_i),
+            "du_f": C(cfg.lambda_f, 0, step_i) if not cfg.use_sds else 0.0,
+            "du_l1": C(cfg.lambda_l1, 0, step_i) if not cfg.use_sds else 0.0,
+            "du_p": C(cfg.lambda_p, 0, step_i) if not cfg.use_sds else 0.0,
         }
         # Image-guided editing: random front/back choice per step; 0 = front.
         guide_flag = float(step_rng.integers(0, 2))
@@ -555,12 +590,31 @@ class HumanEditTrainer:
             n_active = gcfg.n_levels
 
         draws = self.draws(seed, step_i)
+        cond = torch.as_tensor(cond, device=dev)
+        uncond = torch.as_tensor(uncond, device=dev)
+        du_gt = None
+        if not cfg.use_sds:
+            # du edit mode: refresh the azimuth bucket's edited image from
+            # the CURRENT render when due (host state, like the
+            # reference's edited-image cache), then pull toward it.
+            az = float(batch.azimuth_deg[0]) % 360.0
+            bucket = int(az / 360.0 * cfg.du_view_buckets) \
+                % cfg.du_view_buckets
+            per_edit = int(getattr(self.guidance.cfg, "per_editing_step", 10))
+            if (bucket not in self.guidance.edited_images
+                    or step_i % per_edit == 0):
+                with torch.no_grad():
+                    # The training step recomputes and carries the cache.
+                    cur = self._render(use_global, cam_l, cam_g, sdf_cache,
+                                       refresh_idx, n_active)[3]
+                self.guidance.maybe_refresh(cur[None], cond, uncond, None,
+                                            min_t, max_t, bucket, step_i,
+                                            t=draws["du_t"])
+            du_gt = self.guidance.edited_images[bucket][0]
         loss, aux, normal_img, new_cache = self._step(
-            use_global, draws, cam_l, cam_g,
-            torch.as_tensor(cond, device=dev),
-            torch.as_tensor(uncond, device=dev), weights, min_t, max_t, ctrl,
-            guide_normal, guide_mask, guide_flag, sdf_cache, refresh_idx,
-            n_active)
+            use_global, draws, cam_l, cam_g, cond, uncond, weights, min_t,
+            max_t, ctrl, guide_normal, guide_mask, guide_flag, sdf_cache,
+            refresh_idx, n_active, du_gt)
         if cfg.sdf_cache_refresh > 0:
             self._sdf_cache = new_cache
         self.global_step += 1
