@@ -62,12 +62,29 @@ prints no result):
   9. mesh    — Mesh.unwrap_uv and its tangents on the 81,920-face
                icosphere; winding numbers of 4,096 points inside and
                outside it on the card.
- 10. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
+ 10. sd15    — the full-width SD1.5 stack (SD15_UNET, SD_VAE, SD15_CLIP;
+               1.07 B random parameters drawn on the card): one UNet
+               forward and one VAE decode in f32 against f64 on the card
+               (a TF32-on control must fail), the networks' device times
+               and the UNet's f32 bound, then HumanEditTrainer at the du
+               phase's operating point with the SD1.5 prior: 20 SDS steps
+               and 20 du steps (one azimuth bucket, refreshes at steps 0
+               and 10) from step 0.
+ 11. sdxl    — the full-width SDXL + ControlNet-Union stack
+               (SDXLPipelineConfig(), the two text towers as the factory
+               builds them; 4.73 B random parameters): a denoising step,
+               ControlNet and UNet apart, the VAE and the text encoders
+               timed at 1024²; inpaint (both controls) and img2img at
+               1024², 4 steps; then the edit phase's icosphere at 512² with
+               this inpainter behind InpaintTrainer (2 views, ladder 2/1/1)
+               and prepare_refine_guidance(upscale_to_2048=True) on one
+               turntable view.
+ 12. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
                on the fit phase's icosphere and 8 ring views at 512²: its
                first step against the single-device render and loss, 2 and
                4 tile-row bands in one process against the unsharded image
                and gradients, then 20 timed steps whose loss must fall.
- 11. a `kernels` JSON line: each kernel's launches on its main path (the
+ 13. a `kernels` JSON line: each kernel's launches on its main path (the
      fit; the edit stage for the mesh resolve; the spatial stage for the
      hash-grid scatter; the sharded step for the per-pair backward), error
      against its plain version, ms, plain ms, library ms and bound.
@@ -145,6 +162,13 @@ LPIPS_CHECK_SIZE, LPIPS_RTOL, LPIPS_GRAD_RTOL_OF_MAX = 128, 1e-4, 1e-4
 # The mesh phase: winding-number points and how far from 1 / 0 they may be.
 WINDING_POINTS, WINDING_ATOL = 4096, 1e-3
 K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
+# The sd15 phase: SDS and du steps from step 0, the latent size of the
+# 512² normal maps, and the networks' f32-vs-f64 limit on the card (max
+# error as a share of the f64 result's largest entry).
+SD_STEPS, SD_LATENT, SD_F64_RTOL = 20, 64, 1e-4
+# The sdxl phase: its image size, the denoising steps of each pipeline
+# call, and the edit's fit-iteration ladder.
+XL_SIZE, XL_STEPS, XL_EDIT_LADDER = 1024, 4, (2, 1, 1)
 # The sharded phase: timed steps, the band counts checked in one process,
 # and the kernels its step launches once per view.
 SHARDED_STEPS, SHARDED_BANDS = 20, (2, 4)
@@ -2139,13 +2163,9 @@ def phase_du(dev, kernels):
     pull_ms = [t for st, t in enumerate(times) if st not in steps_refreshed]
     moved = float((trainer.params.grid.detach()
                    - trainer.frozen_params.grid).abs().sum())
-    def stats(ms):
-        return (f"median {statistics.median(ms):.3f} ms over {len(ms)} (min "
-                f"{min(ms):.3f}, max {max(ms):.3f})" if ms else "none")
-
     print(f"  du edit, {DU_STEPS} steps from step 0: refresh steps "
-          f"{sorted(steps_refreshed)}: {stats(refresh_ms)}; pull steps: "
-          f"{stats(pull_ms)}; loss first "
+          f"{sorted(steps_refreshed)}: {stats_line(refresh_ms)}; pull steps: "
+          f"{stats_line(pull_ms)}; loss first "
           f"{recs[0]['loss']:.4f} last {recs[-1]['loss']:.4f}; du_f "
           f"{recs[-1]['du_f']:.4f}, du_l1 {recs[-1]['du_l1']:.4f}, recon "
           f"{recs[-1]['recon']:.3g}, nc {recs[-1]['nc']:.5f}; buckets visited "
@@ -2170,6 +2190,507 @@ def phase_du(dev, kernels):
     profile_window(lambda: trainer.train_step(seed=1), iters=5,
                    step_ms=statistics.median(times),
                    watch=("scatter_kernel", "resolve_kernel"))
+    return launches
+
+
+def stats_line(ms):
+    """Median, count, min and max of step times in ms."""
+    return (f"median {statistics.median(ms):.3f} ms over {len(ms)} (min "
+            f"{min(ms):.3f}, max {max(ms):.3f})" if ms else "none")
+
+
+def median_ms(fn, iters=5, warmup=1):
+    """(median, min, max) device ms of `fn` over `iters` calls, each timed
+    with CUDA events."""
+    ms = each_device_ms(fn, iters, warmup=warmup)
+    return statistics.median(ms), min(ms), max(ms)
+
+
+def fmt_ms(m):
+    return f"{m[0]:.3f} ms (min {m[1]:.3f}, max {m[2]:.3f})"
+
+
+def flops_of(fn):
+    """Matmul and convolution FLOPs of one call of `fn`, counted by
+    torch.utils.flop_counter from the shapes of the ops it runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def tree_bytes(tree):
+    from youreditableavatar_tpu_torch.guidance.sd_layers import tree_numel
+
+    return 4 * tree_numel(tree)
+
+
+def rel_err(got, ref):
+    ref = ref.double()
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def check_f64(name, run, params, rtol):
+    """`run(params)` in f32 (TF32 off) and with TF32 on, each against the
+    same computation in f64 on the card: the f32 error must stay within
+    `rtol` of the f64 result's largest entry, the TF32 control must not."""
+    from youreditableavatar_tpu_torch.guidance.sd_layers import (
+        tree_leaves, tree_to)
+
+    with torch.no_grad():
+        y32 = run(params, torch.float32)
+        p64 = tree_to(params, tree_leaves(params)[0].device, torch.float64)
+        y64 = run(p64, torch.float64)
+        del p64
+        tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            y_tf32 = run(params, torch.float32)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+    e32, etf = rel_err(y32, y64), rel_err(y_tf32, y64)
+    print(f"  {name}: card f32 (TF32 off) vs card f64, max error of the "
+          f"largest entry {e32:.3e} (limit {rtol:.0e}); control with TF32 "
+          f"on {etf:.3e} (must exceed the limit)")
+    if not e32 <= rtol:
+        raise AssertionError(f"{name} in f32 differs from f64")
+    if not etf > rtol:
+        raise AssertionError(f"{name}: the TF32 control does not fail, so "
+                             f"the limit cannot tell f32 from TF32")
+    torch.cuda.empty_cache()
+
+
+def no_network_grads(*trees):
+    """The number of weights in `trees`; raises if any requires or holds a
+    gradient."""
+    from youreditableavatar_tpu_torch.guidance.sd_layers import tree_leaves
+
+    leaves = [x for t in trees for x in tree_leaves(t)]
+    if any(x.requires_grad or x.grad is not None for x in leaves):
+        raise AssertionError("a network weight requires or holds a gradient")
+    return sum(x.numel() for x in leaves)
+
+
+def phase_sd15(dev, kernels):
+    """The full-width SD1.5 stack (SD15_UNET, SD_VAE, SD15_CLIP, random
+    weights) behind HumanEditTrainer at the du phase's operating point:
+    SDS_STEPS SDS steps and SDS_STEPS du steps from step 0; the networks'
+    times, the UNet's f32 bound, and f32 against f64 on the card."""
+    from youreditableavatar_tpu_torch.data.camera_sampler import (
+        RandomCameraConfig)
+    from youreditableavatar_tpu_torch.guidance.clip_text import SD15_CLIP
+    from youreditableavatar_tpu_torch.guidance.manifests import (
+        clip_text_manifest, unet_manifest, vae_manifest)
+    from youreditableavatar_tpu_torch.guidance.prompts import PromptProcessor
+    from youreditableavatar_tpu_torch.guidance.sd15 import (
+        CLIPPromptEncoder, SD15Prior)
+    from youreditableavatar_tpu_torch.guidance.sd_layers import tree_numel
+    from youreditableavatar_tpu_torch.guidance.sd_unet import (
+        SD15_UNET, apply_unet)
+    from youreditableavatar_tpu_torch.guidance.sd_vae import SD_VAE, vae_decode
+    from youreditableavatar_tpu_torch.guidance.sds import (
+        SDSConfig, SDSDUConfig, SDSDUGuidance, SDSGuidance)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
+    from youreditableavatar_tpu_torch.stages.spatial import (
+        HumanEditConfig, HumanEditTrainer)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prior = SD15Prior.random_init(gen, SD15_UNET, SD_VAE, device=dev)
+    enc = CLIPPromptEncoder.random_init(gen, SD15_CLIP, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counts = {"unet": tree_numel(prior.unet_params),
+              "vae": tree_numel(prior.vae_params),
+              "clip": tree_numel(enc.params)}
+    official = {k: sum(int(np.prod(s)) for s in m.values()) for k, m in (
+        ("unet", unet_manifest(SD15_UNET)), ("vae", vae_manifest(SD_VAE)),
+        ("clip", clip_text_manifest(SD15_CLIP)))}
+    print(f"  SD1.5 random weights drawn on the card in {t_init:.2f} s: "
+          f"{json.dumps(counts)} = {sum(counts.values()):,} parameters "
+          f"({4 * sum(counts.values()) / 2**30:.2f} GiB f32); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if counts != official:
+        raise AssertionError(f"parameter counts {counts} differ from the "
+                             f"official checkpoints' {official}")
+
+    # One UNet forward at CFG batch 2 on 64² latents and one VAE decode,
+    # f32 against f64 on the card (TF32 on as the control).
+    g = torch.Generator(device=dev).manual_seed(1)
+    lat = SD_LATENT
+    z = torch.randn((1, lat, lat, 4), generator=g, device=dev)
+    t = torch.tensor([500], device=dev)
+    cond, uncond = enc.encode(["a red down jacket"]), enc.encode([""])
+    ctx2 = torch.cat([cond, uncond])
+    z2, t2 = torch.cat([z, z]), torch.cat([t, t])
+    check_f64("SD1.5 UNet forward (CFG batch 2, 64² latents)",
+              lambda p, dt: apply_unet(p, z2.to(dt), t2, ctx2.to(dt),
+                                       SD15_UNET),
+              prior.unet_params, SD_F64_RTOL)
+    check_f64("SD VAE decode (64² latents → 512²)",
+              lambda p, dt: vae_decode(p, z.to(dt) / SD_VAE.scaling_factor,
+                                       SD_VAE),
+              prior.vae_params, SD_F64_RTOL)
+
+    # The networks' device times and the UNet's f32 bound.
+    unet_ms = median_ms(lambda: prior.predict_noise(z, t, cond, uncond))
+    flops = flops_of(lambda: prior.predict_noise(z, t, cond, uncond))
+    unet_bytes = tree_bytes(prior.unet_params) + 4 * (
+        z2.numel() * 2 + ctx2.numel())
+    ub = bound(unet_bytes, flops)
+    img = torch.rand((1, HEIGHT, WIDTH, 3), generator=g, device=dev)
+
+    def enc_fwd_bwd():
+        x = img.detach().requires_grad_()
+        prior.encode_images(x, g).square().sum().backward()
+    vae_bwd_ms = median_ms(enc_fwd_bwd)
+    vae_flops = flops_of(lambda: prior.encode_images(img, g))
+    with torch.no_grad():
+        dec_ms = median_ms(lambda: prior.decode_latents(z))
+        dec_flops = flops_of(lambda: prior.decode_latents(z))
+    clip_ms = median_ms(lambda: enc.encode(["a red down jacket", ""]))
+    print(f"  device times (median of 5, CUDA events): UNet forward at CFG "
+          f"batch 2, {lat}² latents {fmt_ms(unet_ms)}, {flops / 1e12:.3f} "
+          f"TFLOP → f32 bound {ub[0]:.3f} ms ({ub[1]}; "
+          f"{ub[0] / unet_ms[0]:.3f} of it, {flops / unet_ms[0] / 1e9:.1f} "
+          f"TFLOP/s); VAE encode forward + backward at 1 × {WIDTH}² "
+          f"{fmt_ms(vae_bwd_ms)} (forward {vae_flops / 1e12:.3f} TFLOP); "
+          f"decode {fmt_ms(dec_ms)} ({dec_flops / 1e12:.3f} TFLOP, f32 bound "
+          f"{bound(0, dec_flops)[0]:.3f} ms); CLIP encode of 2 prompts "
+          f"{fmt_ms(clip_ms)}")
+
+    # The spatial stage's SDS and du edits at full width.
+    results = {}
+    for mode in ("sds", "du"):
+        field, params, geometry, part, mt, edit_faces, t_part = edit_field(dev)
+        if mode == "sds":
+            guidance = SDSGuidance(prior, SDSConfig())
+        else:
+            guidance = SDSDUGuidance(prior, SDSDUConfig(
+                per_editing_step=DU_PER_EDIT))
+        prompts = PromptProcessor(
+            "a red down jacket", "low quality", enc,
+            cache_dir=str(kernels.BUILD_DIR / "text_embeddings"),
+            model_name="chip-sd15-random")
+        ecfg = HumanEditConfig(
+            use_sds=mode == "sds", du_view_buckets=1,
+            camera=RandomCameraConfig(height=HEIGHT, width=WIDTH))
+        trainer = HumanEditTrainer(field, geometry, part, params, guidance,
+                                   prompts, prompts, ecfg, MeshRasterConfig(),
+                                   device=dev)
+        refreshes = []
+        if mode == "du":
+            refresh = guidance.maybe_refresh
+
+            def logged_refresh(*args, **kw):  # args 7: the step
+                refreshes.append(args[7])
+                return refresh(*args, **kw)
+            guidance.maybe_refresh = logged_refresh
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        recs, times = [], []
+        for _ in range(SD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            recs.append(trainer.train_step(seed=1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: kernels.LAUNCHES[k]
+                    for k in ("hash_scatter", "mesh_resolve")}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = float((trainer.params.grid.detach()
+                       - trainer.frozen_params.grid).abs().sum())
+        n_weights = no_network_grads(prior.unet_params, prior.vae_params,
+                                     enc.params)
+        if mode == "sds":
+            stat = f"steps: {stats_line(times)}"
+        else:
+            stat = (f"refresh steps {refreshes}: "
+                    f"{stats_line([times[s] for s in refreshes])}; pull steps: "
+                    f"{stats_line([x for s, x in enumerate(times) if s not in refreshes])}")
+        key = "sds" if mode == "sds" else "du_f"
+        print(f"  {mode} edit, {SD_STEPS} steps from step 0 ({int(mt.num_faces)}"
+              f" faces, {int(edit_faces.sum())} editable): {stat}; loss first "
+              f"{recs[0]['loss']:.4f} last {recs[-1]['loss']:.4f} ({key} "
+              f"{recs[0][key]:.4f} → {recs[-1][key]:.4f}); Σ|Δ table| "
+              f"{moved:.6g}; launches {json.dumps(launches)}; peak memory "
+              f"{peak:.2f} GiB; no gradient on any of the {n_weights:,} "
+              f"network weights")
+        if not all(np.isfinite(v) for r in recs for v in r.values()):
+            raise AssertionError(f"a non-finite {mode} loss")
+        if not (np.isfinite(moved) and moved > 0):
+            raise AssertionError(f"the {mode} edit did not move the field")
+        if launches["hash_scatter"] != K4_PER_EDIT_STEP * SD_STEPS:
+            raise AssertionError("hash_scatter did not launch 3 times a step")
+        if mode == "du" and refreshes != list(range(0, SD_STEPS, DU_PER_EDIT)):
+            raise AssertionError(f"refreshes at steps {refreshes}")
+        if mode == "sds":
+            profile_window(lambda: trainer.train_step(seed=1), iters=3,
+                           step_ms=statistics.median(times),
+                           watch=("scatter_kernel", "resolve_kernel"))
+        results[mode] = launches
+        del trainer, guidance, field, params, geometry, part
+        torch.cuda.empty_cache()
+    return results
+
+
+
+
+def phase_sdxl(dev, kernels):
+    """The full-width SDXL + ControlNet-Union stack (SDXLPipelineConfig(),
+    random weights; the text encoder built as the factory builds it):
+    inpaint and img2img at 1024² (4 steps), then the edit phase's
+    icosphere at 512² with this inpainter behind InpaintTrainer and
+    prepare_refine_guidance(upscale_to_2048=True)."""
+    from youreditableavatar_tpu_torch.guidance.clip_text import SD15_CLIP
+    from youreditableavatar_tpu_torch.guidance.factory import BIGG_CLIP
+    from youreditableavatar_tpu_torch.guidance.manifests import (
+        clip_text_manifest, controlnet_union_manifest, unet_manifest,
+        vae_manifest)
+    from youreditableavatar_tpu_torch.guidance.sd15 import CLIPPromptEncoder
+    from youreditableavatar_tpu_torch.guidance.sd_layers import tree_numel
+    from youreditableavatar_tpu_torch.guidance.sd_unet import (
+        apply_unet, init_unet_params)
+    from youreditableavatar_tpu_torch.guidance.sd_vae import init_vae_params
+    from youreditableavatar_tpu_torch.guidance.sdxl_controlnet import (
+        apply_controlnet_union, init_controlnet_union_params)
+    from youreditableavatar_tpu_torch.guidance.sdxl_pipeline import (
+        CTRL_NORMAL, CTRL_REPAINT, SDXLControlNetUnionPipeline,
+        SDXLPipelineConfig, SDXLTextEncoder)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SDXLPipelineConfig()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    unet = init_unet_params(gen, cfg.unet)
+    vae = init_vae_params(gen, cfg.vae)
+    controlnet = init_controlnet_union_params(gen, cfg.controlnet)
+    enc_l = CLIPPromptEncoder.random_init(gen, SD15_CLIP, device=dev)
+    enc_g = CLIPPromptEncoder.random_init(gen, BIGG_CLIP, device=dev)
+    proj_g = torch.randn((1280, 1280), generator=gen, device=dev) / 1280**0.5
+    pipe = SDXLControlNetUnionPipeline(unet, vae, controlnet,
+                                       SDXLTextEncoder(enc_l, enc_g, proj_g),
+                                       cfg, device=dev)
+    del unet, vae, controlnet
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    counts = {"unet": tree_numel(pipe.unet_params),
+              "controlnet": tree_numel(pipe.controlnet_params),
+              "vae": tree_numel(pipe.vae_params),
+              "clip_l": tree_numel(enc_l.params),
+              "clip_bigg": tree_numel(enc_g.params),
+              "text_projection": proj_g.numel()}
+    official = {k: sum(int(np.prod(s)) for s in m.values()) for k, m in (
+        ("unet", unet_manifest(cfg.unet)),
+        ("controlnet", controlnet_union_manifest(cfg.controlnet)),
+        ("vae", vae_manifest(cfg.vae)),
+        ("clip_l", clip_text_manifest(SD15_CLIP)),
+        ("clip_bigg", clip_text_manifest(BIGG_CLIP)))}
+    print(f"  SDXL random weights drawn on the card in {t_init:.2f} s: "
+          f"{json.dumps(counts)} = {sum(counts.values()):,} parameters "
+          f"({4 * sum(counts.values()) / 2**30:.2f} GiB f32); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if {k: counts[k] for k in official} != official:
+        raise AssertionError(f"parameter counts {counts} differ from the "
+                             f"official checkpoints' {official}")
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    res = XL_SIZE
+    text_ms = median_ms(lambda: pipe.text_encoder.encode_with_pooled(
+        ["a red hat"]))
+    image = torch.rand((res, res, 3), generator=g, device=dev)
+    with torch.no_grad():
+        enc_ms = median_ms(lambda: pipe._encode_image(image, g, None), 3)
+        z0 = pipe._encode_image(image, g, None)
+        dec_ms = median_ms(lambda: pipe._decode(z0), 3)
+        cond, uncond = pipe._encode_prompt("a red hat", "")
+        ctx2, pooled2 = pipe._cfg_batch(cond, uncond, 1)
+        controls = [(CTRL_NORMAL, image[None]), (CTRL_REPAINT, image[None])]
+        step_ms = median_ms(lambda: pipe._step(z0, 999, 749, ctx2, pooled2,
+                                               controls), 3)
+        step_flops = flops_of(lambda: pipe._step(z0, 999, 749, ctx2, pooled2,
+                                                 controls))
+        # The step's two networks apart, at the same CFG batch.
+        z2 = torch.cat([z0, z0])
+        tb = torch.full((2,), 999, device=dev)
+        px = torch.tensor([res, res, 0, 0, res, res], dtype=torch.float32,
+                          device=dev)[None].expand(2, 6)
+        add = (pooled2, px)
+        ctrl2 = [(c, torch.cat([im, im])) for c, im in controls]
+        cn_fn = lambda: apply_controlnet_union(  # noqa: E731
+            pipe.controlnet_params, z2, tb, ctx2, ctrl2, cfg.controlnet, add)
+        cn_ms = median_ms(cn_fn, 3)
+        cn_flops = flops_of(cn_fn)
+        residuals = cn_fn()
+        un_fn = lambda: apply_unet(pipe.unet_params, z2, tb, ctx2,  # noqa: E731
+                                   cfg.unet, add, residuals)
+        un_ms = median_ms(un_fn, 3)
+        un_flops = flops_of(un_fn)
+    step_bytes = tree_bytes(pipe.unet_params) + tree_bytes(
+        pipe.controlnet_params)
+    sb = bound(step_bytes, step_flops)
+    print(f"  device times (median, CUDA events): a denoising step "
+          f"(ControlNet + UNet at CFG batch 2, {res // 8}² latents, two "
+          f"controls) {fmt_ms(step_ms)}, {step_flops / 1e12:.3f} TFLOP → f32 "
+          f"bound {sb[0]:.3f} ms ({sb[1]}; {sb[0] / step_ms[0]:.3f} of it); "
+          f"ControlNet alone {fmt_ms(cn_ms)} ({cn_flops / 1e12:.3f} TFLOP, "
+          f"bound {bound(0, cn_flops)[0]:.3f} ms), UNet alone "
+          f"{fmt_ms(un_ms)} ({un_flops / 1e12:.3f} TFLOP, bound "
+          f"{bound(0, un_flops)[0]:.3f} ms); VAE encode at {res}² "
+          f"{fmt_ms(enc_ms)}, decode {fmt_ms(dec_ms)}; text encoders (CLIP-L "
+          f"+ bigG, one prompt) {fmt_ms(text_ms)}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_window(lambda: pipe._step(z0, 999, 749, ctx2, pooled2, controls),
+                   iters=2, step_ms=step_ms[0])
+    del residuals, z2, ctrl2
+
+    # inpaint and img2img at 1024², cut to XL_STEPS steps.
+    mask = torch.zeros((res, res), device=dev)
+    mask[:, res // 2:] = 1.0
+    normal = torch.rand((res, res, 3), generator=g, device=dev)
+    seen = {}
+    encode, decode = pipe._encode_image, pipe._decode
+
+    def logged_encode(*args):
+        seen["z_orig"] = encode(*args)
+        return seen["z_orig"]
+
+    def logged_decode(latents):
+        seen["z"] = latents
+        return decode(latents)
+    pipe._encode_image, pipe._decode = logged_encode, logged_decode
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.inpaint(image, mask, normal, image, "a red hat", "blurry",
+                       torch.Generator(device=dev).manual_seed(3),
+                       steps=XL_STEPS)
+    torch.cuda.synchronize()
+    t_inpaint = time.perf_counter() - t0
+    pipe._encode_image, pipe._decode = encode, decode
+    # The mask's left half covers latent columns < res / 16: the last step
+    # pins them to the encoded original exactly; in the image the decoder
+    # (its mid-block attention sees every latent) leaves them near the
+    # original's VAE round trip.
+    keep = slice(0, res // 16)
+    pinned = bool(torch.equal(seen["z"][:, :, keep], seen["z_orig"][:, :, keep]))
+    with torch.no_grad():
+        rt = pipe._decode(seen["z_orig"])
+    keep_err = float((out[:, : res // 2 - 64] - rt[:, : res // 2 - 64]).abs().mean())
+    edit_err = float((out[:, res // 2 + 64:] - rt[:, res // 2 + 64:]).abs().mean())
+    t0 = time.perf_counter()
+    out2 = pipe.img2img(image, image, "a red hat",
+                        torch.Generator(device=dev).manual_seed(4),
+                        strength=0.5, steps=XL_STEPS)
+    torch.cuda.synchronize()
+    t_img2img = time.perf_counter() - t0
+    print(f"  inpaint at {res}², {XL_STEPS} steps, two controls: "
+          f"{t_inpaint:.2f} s; unmasked latents equal the encoded original's: "
+          f"{pinned}; mean |out − VAE round trip| "
+          f"{keep_err:.4f} on the unmasked half, {edit_err:.4f} on the "
+          f"masked half (64 px from the seam); img2img at strength 0.5, "
+          f"{len(pipe._timesteps(XL_STEPS, 0.5)) - 1} steps: {t_img2img:.2f} "
+          f"s; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name, o in (("inpaint", out), ("img2img", out2)):
+        if tuple(o.shape) != (res, res, 3) or not bool(torch.isfinite(o).all()) \
+                or float(o.min()) < 0 or float(o.max()) > 1:
+            raise AssertionError(f"{name} output is not a finite image in "
+                                 f"[0, 1]")
+    if not (pinned and keep_err < edit_err):
+        raise AssertionError("the unmasked half is not pinned to the VAE "
+                             "round trip")
+    del out, out2, rt, seen
+
+    launches = edit_with_sdxl(dev, kernels, pipe)
+    no_network_grads(pipe.unet_params, pipe.vae_params,
+                     pipe.controlnet_params, enc_l.params, enc_g.params)
+    return launches
+
+
+def edit_with_sdxl(dev, kernels, pipe):
+    """The edit phase's icosphere at 512² with the SDXL pipeline behind
+    InpaintTrainer (2 ring views, ladder 2/1/1) and
+    prepare_refine_guidance(upscale_to_2048=True) on one turntable view."""
+    from youreditableavatar_tpu_torch.models.cameras import (
+        sample_circle_cameras, sample_ring_cameras)
+    from youreditableavatar_tpu_torch.models.tetgs import (
+        build_tetgs, extract_keep_gaussians)
+    from youreditableavatar_tpu_torch.models.tetgs_edit import build_edit_tetgs
+    from youreditableavatar_tpu_torch.models.textured_mesh import (
+        TexturedMeshModel)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
+    from youreditableavatar_tpu_torch.ops.sh import rgb_to_sh_dc
+    from youreditableavatar_tpu_torch.stages.edit_texture import (
+        InpaintConfig, InpaintTrainer)
+    from youreditableavatar_tpu_torch.utils.graphics import inverse_sigmoid
+
+    verts, faces = icosphere(FIT_SUBDIV)
+    binding, params = build_tetgs(verts, faces, None, np.arange(len(faces)),
+                                  sh_levels=2, device=dev)
+    with torch.no_grad():
+        params.sh_dc.copy_(rgb_to_sh_dc(torch.as_tensor(
+            pattern_colors(binding.ori_points.cpu().numpy()),
+            dtype=torch.float32, device=dev))[:, None, :])
+        params.opacity_raw.fill_(float(inverse_sigmoid(torch.tensor(0.9))))
+    in_cap = verts[faces].mean(1)[:, 2] > EDIT_CAP_Z
+    keep = extract_keep_gaussians(binding, params, np.flatnonzero(~in_cap))
+    used = np.unique(faces[in_cap])
+    remap = np.zeros(len(verts), np.int64)
+    remap[used] = np.arange(len(used))
+    ebinding, eparams = build_edit_tetgs(verts[used], remap[faces[in_cap]],
+                                         keep, sh_levels=1, device=dev)
+    mesh_model = TexturedMeshModel(verts, faces, verts[:, 2] > EDIT_CAP_Z,
+                                   MeshRasterConfig(), device=dev)
+    ring = sample_ring_cameras(counts=(2, 0, 0), height=HEIGHT, width=WIDTH)
+    turntable = sample_circle_cameras(1, height=HEIGHT, width=WIDTH)
+    a, b, c = XL_EDIT_LADDER
+    cfg = InpaintConfig(iters_first=a, iters_second=b, iters_rest=c,
+                        first_group=1, second_group=1,
+                        inpaint_steps=XL_STEPS)
+    inpaint = InpaintTrainer(ebinding, eparams, mesh_model, ring, pipe,
+                             "a red hat", "blurry", cfg, device=dev)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inpaint.inpaint_training(torch.Generator(device=dev).manual_seed(5))
+    torch.cuda.synchronize()
+    t_inpaint = time.perf_counter() - t0
+    blends = inpaint.prepare_refine_guidance(
+        turntable, torch.Generator(device=dev).manual_seed(6),
+        upscale_to_2048=True)
+    torch.cuda.synchronize()
+    t_refine = time.perf_counter() - t0 - t_inpaint
+    launches = dict(kernels.LAUNCHES)
+    print(f"  edit with the SDXL inpainter at {WIDTH}² ({ebinding.n_edit} "
+          f"edit disks): inpaint training over {len(ring)} views (one joint "
+          f"front|back inpaint at {cfg.fb_res}×{2 * cfg.fb_res}, "
+          f"{XL_STEPS} steps) {t_inpaint:.2f} s, losses "
+          f"{[round(h['loss'], 5) for h in inpaint.history]}, "
+          f"{int(mesh_model.painted.sum())} painted vertices; refine "
+          f"guidance with the 2×2-crop upscale, {len(blends)} view "
+          f"{t_refine:.2f} s, shape {blends[0].shape}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for blend in blends:
+        if blend.shape != (HEIGHT, WIDTH, 3) or not np.isfinite(blend).all() \
+                or blend.min() < 0 or blend.max() > 1:
+            raise AssertionError("the upscale refine's blend is not a "
+                                 "finite image of the render's shape")
+    if not all(np.isfinite(h["loss"]) for h in inpaint.history):
+        raise AssertionError("a non-finite inpaint fit loss")
+    for k in RENDER_KERNELS + ("mesh_resolve",):
+        if not launches.get(k):
+            raise AssertionError(f"{k} did not launch in the SDXL edit")
     return launches
 
 
@@ -2468,6 +2989,8 @@ def main(argv) -> int:
         "spatial": lambda: phase_spatial(dev, _kernels),
         "du": lambda: phase_du(dev, _kernels),
         "mesh": lambda: phase_mesh(dev, _kernels),
+        "sd15": lambda: phase_sd15(dev, _kernels),
+        "sdxl": lambda: phase_sdxl(dev, _kernels),
         "sharded": lambda: phase_sharded(dev, _kernels),
     }
     chosen = list(phases) if only is None else only

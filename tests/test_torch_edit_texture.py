@@ -506,20 +506,6 @@ def test_refined_editing_follows_jax(stage4):
         assert np.abs(got - ref).max() > 0, k
 
 
-@pytest.mark.parametrize("option", ["upscale"])
-def test_unported_options_raise(scene, option):
-    from youreditableavatar_tpu_torch.guidance.stub import StubInpainter
-    from youreditableavatar_tpu_torch.models import cameras as tc
-    from youreditableavatar_tpu_torch.stages import edit_texture as ts
-
-    cams = _cams(tc, (0.0, 180.0))
-    cfg = ts.InpaintConfig(raster=_tcfgs()[0], auto_size_budget=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ts.InpaintTrainer(scene["ebt"], scene["ept"], None, cams,
-                          StubInpainter(), "p", cfg=cfg, device=CPU
-                          ).prepare_refine_guidance(cams, upscale_to_2048=True)
-
-
 def test_stubs_match_jax():
     from youreditableavatar_tpu.guidance import stub as js
     from youreditableavatar_tpu_torch.guidance import stub as ts

@@ -21,8 +21,10 @@ class DiffusionPrior(Protocol):
     alphas_cumprod: Tensor  # (T,) ᾱ schedule
 
     def encode_images(self, images: Tensor,
-                      generator: Optional[torch.Generator]) -> Tensor:
-        """(B, H, W, 3) in [0,1] → (B, h, w, C) latents (differentiable)."""
+                      generator: Optional[torch.Generator],
+                      noise: Optional[Tensor] = None) -> Tensor:
+        """(B, H, W, 3) in [0,1] → (B, h, w, C) latents (differentiable);
+        a sampling encoder draws from `generator`, or takes `noise`."""
         ...
 
     def predict_noise(

@@ -14,8 +14,9 @@ Counterpart of `youreditableavatar_tpu/guidance/sds.py`:
     toward it.
 
 Where the JAX code draws the timestep and the noise from a PRNG key, these
-take a `torch.Generator` — or the draws themselves (`t=`, `noise=`), which
-is how the trainer's single seam of randomness hands them in.
+take a `torch.Generator` — or the draws themselves (`t=`, `noise=`, and for
+a prior whose encode samples, `enc_noise=`; the du edit's `edit_noise=`),
+which is how the trainer's single seam of randomness hands them in.
 """
 
 from __future__ import annotations
@@ -62,8 +63,9 @@ class SDSGuidance:
         mx = C(self.cfg.max_step_percent, epoch, global_step)
         return int(t_total * mn), int(t_total * mx)
 
-    def _noised(self, images, generator, min_t, max_t, t, noise):
-        latents = self.prior.encode_images(images, generator)
+    def _noised(self, images, generator, min_t, max_t, t, noise,
+                enc_noise=None):
+        latents = self.prior.encode_images(images, generator, enc_noise)
         if t is None or noise is None:
             t, noise = draw_timestep_noise(latents.shape, min_t, max_t,
                                            generator, latents.device)
@@ -93,6 +95,7 @@ class SDSGuidance:
         max_t: int,
         t: Optional[Tensor] = None,
         noise: Optional[Tensor] = None,
+        enc_noise: Optional[Tensor] = None,
     ) -> Dict[str, Tensor]:
         """SDS loss on rendered images.
 
@@ -102,10 +105,11 @@ class SDSGuidance:
           generator: draws t and the noise when they are not given.
           min_t/max_t: timestep bounds (ints; from `timestep_range`).
           t, noise: optional (B,) timesteps and latent-shaped noise.
+          enc_noise: optional latent-shaped ε of the encoder's sample.
         Returns dict(loss_sds, grad_norm, t).
         """
         latents, t, noise, acp, z_t = self._noised(
-            images, generator, min_t, max_t, t, noise)
+            images, generator, min_t, max_t, t, noise, enc_noise)
         eps_cond, eps_uncond = self.prior.predict_noise(
             z_t, t, cond_emb, uncond_emb)
         eps_hat = eps_uncond + self.cfg.guidance_scale * (eps_cond - eps_uncond)
@@ -138,12 +142,14 @@ class PerpNegSDSGuidance(SDSGuidance):
         neg_weights: Optional[Tensor] = None,
         t: Optional[Tensor] = None,
         noise: Optional[Tensor] = None,
+        enc_noise: Optional[Tensor] = None,
     ) -> Dict[str, Tensor]:
         if neg_emb is None:
             return super().__call__(images, pos_emb, uncond_emb, generator,
-                                    min_t, max_t, t=t, noise=noise)
+                                    min_t, max_t, t=t, noise=noise,
+                                    enc_noise=enc_noise)
         latents, t, noise, acp, z_t = self._noised(
-            images, generator, min_t, max_t, t, noise)
+            images, generator, min_t, max_t, t, noise, enc_noise)
         eps_pos, eps_unc = self.prior.predict_noise(z_t, t, pos_emb, uncond_emb)
         e_pos = eps_pos - eps_unc
         accum = e_pos
@@ -197,13 +203,16 @@ class SDSDUGuidance(SDSGuidance):
         view_index: int,
         global_step: int,
         t: Optional[int] = None,
+        enc_noise: Optional[Tensor] = None,
+        edit_noise: Optional[Tensor] = None,
     ) -> Tensor:
         """Refresh the per-view edited-image cache if due; return the cached
         edit for `view_index`.
 
         `images` must be the CURRENT render (it is detached here). The
-        timestep `t` ~ U{min_t..max_t} is drawn from `generator` unless
-        given.
+        timestep `t` ~ U{min_t..max_t}, the encoder's sample and the edit's
+        noise are drawn from `generator` unless given (`t`, `enc_noise`,
+        `edit_noise`).
         """
         cfg: SDSDUConfig = self.cfg  # type: ignore[assignment]
         refresh = (view_index not in self.edited_images
@@ -213,10 +222,12 @@ class SDSDUGuidance(SDSGuidance):
                 t = int(torch.randint(min_t, max_t + 1, (),
                                       generator=generator))
             with torch.no_grad():
-                latents = self.prior.encode_images(images.detach(), generator)
+                latents = self.prior.encode_images(images.detach(), generator,
+                                                   enc_noise)
                 edit_latents = self.prior.edit_latents(
                     latents, int(t), cond_emb, uncond_emb, generator,
-                    cfg.du_guidance_scale, cfg.steps_divisor)
+                    cfg.du_guidance_scale, cfg.steps_divisor,
+                    noise=edit_noise)
                 edit = self.prior.decode_latents(edit_latents)
                 if edit.shape != images.shape:
                     from youreditableavatar_tpu_torch.stages.edit_texture \
@@ -230,12 +241,18 @@ class SDSDUGuidance(SDSGuidance):
 
     def du_loss_terms(self, images: Tensor, gt: Tensor,
                       generator: Optional[torch.Generator] = None,
+                      enc_noise: Optional[Tensor] = None,
                       ) -> Dict[str, Tensor]:
         """Differentiable du comparison losses against a cached edit `gt`:
-        latent MSE + image L1 (+ perceptual, with a `perceptual_fn`)."""
-        latents = self.prior.encode_images(images, generator)
+        latent MSE + image L1 (+ perceptual, with a `perceptual_fn`). Both
+        encodes take the same sample ε (`enc_noise`, when given), as the
+        JAX code's one key does."""
+        if enc_noise is None and generator is not None:
+            enc_noise = _sample_noise(self.prior, images, generator)
+        latents = self.prior.encode_images(images, generator, enc_noise)
         with torch.no_grad():
-            gt_latents = self.prior.encode_images(gt.detach(), generator)
+            gt_latents = self.prior.encode_images(gt.detach(), generator,
+                                                  enc_noise)
         b = images.shape[0]
         out = {"loss_f": torch.sum((latents - gt_latents) ** 2) / b,
                "loss_l1": torch.sum(torch.abs(images - gt)) / b}
@@ -254,8 +271,24 @@ class SDSDUGuidance(SDSGuidance):
         view_index: int,
         global_step: int,
         t: Optional[int] = None,
+        enc_noise: Optional[Tensor] = None,
+        edit_noise: Optional[Tensor] = None,
     ) -> Dict[str, Tensor]:
-        """Multi-step edit losses for one view batch (B=1)."""
+        """Multi-step edit losses for one view batch (B=1); the refresh and
+        the comparison share one encoder sample, as in the JAX code."""
+        if enc_noise is None and generator is not None:
+            enc_noise = _sample_noise(self.prior, images, generator)
         gt = self.maybe_refresh(images, cond_emb, uncond_emb, generator,
-                                min_t, max_t, view_index, global_step, t=t)
-        return self.du_loss_terms(images, gt, generator)
+                                min_t, max_t, view_index, global_step, t=t,
+                                enc_noise=enc_noise, edit_noise=edit_noise)
+        return self.du_loss_terms(images, gt, generator, enc_noise)
+
+
+def _sample_noise(prior, images: Tensor,
+                  generator: torch.Generator) -> Tensor:
+    """One N(0, 1) draw of the prior's latent shape for `images`."""
+    d = prior.latent_downscale
+    b, h, w, _ = images.shape
+    return torch.randn((b, h // d, w // d, prior.latent_channels),
+                       generator=generator,
+                       device=generator.device).to(images.device)

@@ -43,8 +43,10 @@ class StubDiffusionPrior:
         self.emb_dim = emb_dim
 
     def encode_images(self, images: Tensor,
-                      generator: Optional[torch.Generator] = None) -> Tensor:
-        """(B, H, W, 3) → (B, H/8, W/8, 4): avg-pool + channel lift."""
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[Tensor] = None) -> Tensor:
+        """(B, H, W, 3) → (B, H/8, W/8, 4): avg-pool + channel lift
+        (deterministic: `generator` and `noise` are not used)."""
         b, h, w, _ = images.shape
         d = self.latent_downscale
         x = images[:, : h // d * d, : w // d * d]
@@ -81,7 +83,7 @@ class StubDiffusionPrior:
         return torch.clamp(up, 0.0, 1.0)
 
     def edit_latents(self, latents, t, cond, uncond, generator=None,
-                     guidance_scale=7.5, steps_divisor=25):
+                     guidance_scale=7.5, steps_divisor=25, noise=None):
         """Deterministic single-step pull toward the cond embedding."""
         tb = torch.full((latents.shape[0],), int(t), dtype=torch.int64,
                         device=latents.device)

@@ -21,9 +21,7 @@ front/back views blend their guidance only where the painted mask and a
 fix for stray background pixels the inpainter painted.
 
 Where the JAX trainers take a PRNG key these take a `torch.Generator` (or
-None) and hand it to the inpainter. `upscale_to_2048=True` keeps its place
-in the signature and raises `NotImplementedError` until the SDXL
-pipeline is ported.
+None) and hand it to the inpainter.
 """
 
 from __future__ import annotations
@@ -378,28 +376,41 @@ class InpaintTrainer:
         generator: Optional[torch.Generator] = None,
         strength: float = 0.4,
         upscale_to_2048: bool = False,
+        draws=None,
     ) -> List[np.ndarray]:
         """Refined + blended guidance images, one per turntable view: each
         render is img2img-refined at `strength` and blended with the render
-        by the soft edit mask."""
-        if upscale_to_2048:
-            raise NotImplementedError(
-                "upscale_to_2048 needs guidance/sdxl_pipeline.py "
-                "(sdxl_tile_refine), which is not ported yet (the guidance "
-                "networks, ROADMAP.md §1 item 8)"
-            )
+        by the soft edit mask. With `upscale_to_2048` (an SDXL pipeline's
+        `sdxl_tile_refine`) each view is refined as 2×2 crops of its 2×
+        upscale and resized back to the render's shape.
+
+        `draws(name, shape)`, when given, is handed to the inpainter with
+        the names prefixed "view<i>/" (view i's draws)."""
         out_images = []
-        for gscam in turntable:
+        for i, gscam in enumerate(turntable):
             cam = gscam.raster_camera(self.device)
             render = self._render_current(cam)
-            refined = torch.clamp(
-                torch.as_tensor(
-                    self.inpainter.img2img(
-                        render, render, self.prompt, generator=generator,
-                        strength=strength,
-                    ), dtype=torch.float32, device=self.device,
-                ), 0, 1,
-            )
+            kw = {}
+            if draws is not None:
+                kw["draws"] = (lambda name, shape, i=i:
+                               draws(f"view{i}/{name}", shape))
+            if upscale_to_2048:
+                from youreditableavatar_tpu_torch.guidance.sdxl_pipeline \
+                    import sdxl_tile_refine
+
+                refined = torch.clamp(sdxl_tile_refine(
+                    self.inpainter, render, self.prompt, generator, strength,
+                    upscale_to_2048=True, **kw), 0, 1)
+                refined = _resize_bilinear(refined, *render.shape[:2])
+            else:
+                refined = torch.clamp(
+                    torch.as_tensor(
+                        self.inpainter.img2img(
+                            render, render, self.prompt, generator=generator,
+                            strength=strength, **kw,
+                        ), dtype=torch.float32, device=self.device,
+                    ), 0, 1,
+                )
             blend = self.mesh_model.concat_blend_masks(cam)
             m = blend["edit_mask_soft"][..., None]
             img = refined * m + render * (1 - m)

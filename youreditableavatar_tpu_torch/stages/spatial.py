@@ -379,8 +379,10 @@ class HumanEditTrainer:
 
     def draws(self, seed: int, step: int) -> Dict[str, Tensor]:
         """The step's randomness: the SDS timestep `t` (1,) and latent
-        noise, the (recon_points,) recon vertex indices and, in the du
-        mode, `du_t`, the cache refresh's timestep (an int)."""
+        noise, the (recon_points,) recon vertex indices, `enc_noise`, the
+        ε of the prior's encoder sample (every encode of the step shares
+        it) and, in the du mode, `du_t`, the cache refresh's timestep (an
+        int), and `edit_noise`, the noise of its multi-step edit."""
         g = _generator(seed, step)
         min_t, max_t = self.guidance.timestep_range(0, step)
         prior = self.guidance.prior
@@ -394,6 +396,9 @@ class HumanEditTrainer:
         if not self.cfg.use_sds:
             out["du_t"] = int(torch.randint(min_t, max_t + 1, (),
                                             generator=g))
+        out["enc_noise"] = torch.randn(shape, generator=g).to(self.device)
+        if not self.cfg.use_sds:
+            out["edit_noise"] = torch.randn(shape, generator=g).to(self.device)
         return out
 
     def _render(self, use_global, cam_l, cam_g, sdf_cache, refresh_idx,
@@ -436,13 +441,16 @@ class HumanEditTrainer:
             use_global, cam_l, cam_g, sdf_cache, refresh_idx, n_active)
         if cfg.use_sds:
             sds = self.guidance(normal_img[None], cond, uncond, None, min_t,
-                                max_t, t=draws["t"], noise=draws["noise"])
+                                max_t, t=draws["t"], noise=draws["noise"],
+                                enc_noise=draws.get("enc_noise"))
             loss = weights["sds"] * sds["loss_sds"]
             guide_aux = {"sds": sds["loss_sds"]}
         else:
             # du edit mode: pull the render toward the cached multi-step
             # edit `du_gt` (refreshed in train_step).
-            du = self.guidance.du_loss_terms(normal_img[None], du_gt[None])
+            du = self.guidance.du_loss_terms(
+                normal_img[None], du_gt[None],
+                enc_noise=draws.get("enc_noise"))
             loss = (weights["du_f"] * du["loss_f"]
                     + weights["du_l1"] * du["loss_l1"])
             if "loss_p" in du:
@@ -607,9 +615,11 @@ class HumanEditTrainer:
                     # The training step recomputes and carries the cache.
                     cur = self._render(use_global, cam_l, cam_g, sdf_cache,
                                        refresh_idx, n_active)[3]
-                self.guidance.maybe_refresh(cur[None], cond, uncond, None,
-                                            min_t, max_t, bucket, step_i,
-                                            t=draws["du_t"])
+                self.guidance.maybe_refresh(
+                    cur[None], cond, uncond, None, min_t, max_t, bucket,
+                    step_i, t=draws["du_t"],
+                    enc_noise=draws.get("enc_noise"),
+                    edit_noise=draws.get("edit_noise"))
             du_gt = self.guidance.edited_images[bucket][0]
         loss, aux, normal_img, new_cache = self._step(
             use_global, draws, cam_l, cam_g, cond, uncond, weights, min_t,
