@@ -79,16 +79,33 @@ prints no result):
                this inpainter behind InpaintTrainer (2 views, ladder 2/1/1)
                and prepare_refine_guidance(upscale_to_2048=True) on one
                turntable view.
- 12. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
+ 12. segment — the full-width LangSAM stack on random weights drawn on
+               the card: SAM ViT-H at 1024² and GroundingDINO Swin-T at 800²
+               (256 text tokens, 900 queries, the hash tokenizer), each in
+               f32 against f64 on the card (TF32-on controls must fail) and
+               timed; one SAMSegmenter.segment through a DinoGrounder and
+               LocalMeshEditing.localize through it on the edit phase's
+               icosphere (3 views at 512²).
+ 13. pipeline — run_synthetic_pipeline (cli/pipeline.py) at grid 64 / 512²
+               with the production hash grid, budgets and raster configs,
+               cut in depth; each stage's seconds, the MeshSDF pool signs,
+               the artifacts read back, every kernel's launches (all but
+               the per-pair backward), one profiled edit-texture stage, and
+               the spatial CLI's --validate on the produced checkpoint.
+ 14. sharded — the sharded TetGS step (parallel/) as a one-rank NCCL world
                on the fit phase's icosphere and 8 ring views at 512²: its
                first step against the single-device render and loss, 2 and
                4 tile-row bands in one process against the unsharded image
                and gradients, then 20 timed steps whose loss must fall.
- 13. a `kernels` JSON line: each kernel's launches on its main path (the
+ 15. a `kernels` JSON line: each kernel's launches on its main path (the
      fit; the edit stage for the mesh resolve; the spatial stage for the
      hash-grid scatter; the sharded step for the per-pair backward), error
      against its plain version, ms, plain ms, library ms and bound.
 The last line is {"ok": true, "device": {...}}.
+
+Each profiled step prints the device's busy share as the union of its
+device intervals (kernels, memcpys, memsets; `union_length`) beside the
+sum of their times, which counts overlapping kernels twice.
 
 Weights and scenes are random, made from fixed seeds. Without a CUDA card
 the script exits 2; copied alone into a directory without the port, it
@@ -99,6 +116,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -166,6 +184,20 @@ K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 # 512² normal maps, and the networks' f32-vs-f64 limit on the card (max
 # error as a share of the f64 result's largest entry).
 SD_STEPS, SD_LATENT, SD_F64_RTOL = 20, 64, 1e-4
+# The segment phase: GroundingDINO at the "sam" backend's 800², its
+# parameter count from the JAX package's init tree, and the f32-vs-f64
+# limits of the segmentation networks, set from the H100's readings: SAM's
+# mask logits 2.0e-06 and GroundingDINO's boxes 5.4e-06 (TF32 controls
+# 2.2e-03 / 5.2e-03) under 1e-4; its logits 8.2e-05 (TF32 2.4e-02) under
+# 5e-4.
+SEG_DINO_SIZE, GDINO_SWIN_T_PARAMS = 800, 168_108_034
+SEG_F64_RTOL, GDINO_LOGITS_F64_RTOL = 1e-4, 5e-4
+# The pipeline phase: production widths, cut in depth only.
+PIPE_DEPTH = dict(sdf_iters=20, normal_iters=3, edit_steps=4, fit_iters=30,
+                  inpaint_views=3, turntable_views=4, refine_iters=10)
+PIPE_KERNELS = ("composite_forward", "composite_backward", "expand_pairs",
+                "tile_histogram", "counting_layout", "hash_scatter",
+                "mesh_resolve")
 # The sdxl phase: its image size, the denoising steps of each pipeline
 # call, and the edit's fit-iteration ladder.
 XL_SIZE, XL_STEPS, XL_EDIT_LADDER = 1024, 4, (2, 1, 1)
@@ -1399,12 +1431,45 @@ def phase_render(dev, kernels):
     return median
 
 
+def union_length(intervals):
+    """Total length covered by (start, end) intervals: overlaps and
+    repeats count once."""
+    total, cur_start, cur_end = 0.0, None, None
+    for a, b in sorted(intervals):
+        if cur_end is None or a > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = a, b
+        else:
+            cur_end = max(cur_end, b)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total
+
+
+def overlapped_by_name(events):
+    """Per event name, the device time (µs) its (name, start, end) events
+    spend under an earlier-starting event's interval: where the sum of
+    kernel times double-counts the wall."""
+    out: dict = {}
+    reach = None
+    for name, a, b in sorted(events, key=lambda e: (e[1], e[2])):
+        if reach is not None and a < reach:
+            out[name] = out.get(name, 0.0) + min(b, reach) - a
+        reach = b if reach is None else max(reach, b)
+    return out
+
+
 def profile_window(step, iters, step_ms, watch=()):
     """Device time by kernel over a short steady window (torch.profiler),
     and the device's busy share of the window's wall time and of the
-    unprofiled median step `step_ms` (the profiler slows the host). For
-    each name in `watch`, also every kernel whose name holds it, and their
-    sum ("indexfunc": index_add_'s kernels; "scatter_kernel": K4's)."""
+    unprofiled median step `step_ms` (the profiler slows the host). The
+    busy time is the union of the device events' intervals (kernels,
+    memcpys, memsets), printed beside the sum of their times, which counts
+    overlapping work twice. For each name in `watch`, also every kernel
+    whose name holds it, and their sum ("indexfunc": index_add_'s kernels;
+    "scatter_kernel": K4's). → {"busy_ms", "sum_ms", "wall_ms",
+    "busy_share"} per iteration, or None when nothing was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1414,15 +1479,19 @@ def profile_window(step, iters, step_ms, watch=()):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # Device-side kernels only: user ranges (e.g. "Optimizer.step#Adam.step")
+    cuda = torch.autograd.DeviceType.CUDA
+    # Device-side events only: user ranges (e.g. "Optimizer.step#Adam.step")
     # would count the kernels inside them a second time.
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy_us = sum(e.self_device_time_total for e in kernels)
+               if e.device_type == cuda and not e.is_user_annotation]
+    sum_us = sum(e.self_device_time_total for e in kernels)
+    events = [(e.name, e.time_range.start, e.time_range.end, e.thread)
+              for e in prof.events()
+              if e.device_type == cuda and not e.is_user_annotation]
+    busy_us = union_length([(a, b) for _, a, b, _ in events])
     if busy_us == 0:
         print("  profile: the profiler recorded no device time (not measured)")
-        return
+        return None
     print(f"  profile over {iters} iterations: device busy {busy_us / iters / 1e3:.3f} "
           f"ms of {wall_us / iters / 1e3:.3f} ms wall per iteration "
           f"(busy share {busy_us / wall_us:.3f}; of the unprofiled median "
@@ -1430,6 +1499,22 @@ def profile_window(step, iters, step_ms, watch=()):
           f"{len(kernels)} distinct "
           f"kernels, {sum(e.count for e in kernels) / iters:.0f} launches per "
           f"iteration; top device time per iteration:")
+    streams = sorted({t for *_, t in events})
+    spans = {(n, a, b) for n, a, b, _ in events}
+    print(f"  busy time: union of {len(events)} device intervals "
+          f"{busy_us / iters / 1e3:.3f} ms/iteration, share {busy_us / wall_us:.3f}; "
+          f"sum of their times {sum(b - a for _, a, b, _ in events) / iters / 1e3:.3f} "
+          f"ms, kernel table sum {sum_us / iters / 1e3:.3f} ms, share "
+          f"{sum_us / wall_us:.3f}; {len(events) - len(spans)} repeated "
+          f"intervals; streams {len(streams)}: " + "; ".join(
+              f"{t} {sum(1 for *_, u in events if u == t)} events "
+              f"{union_length([(a, b) for _, a, b, u in events if u == t]) / iters / 1e3:.3f} ms"
+              for t in streams[:6]))
+    over = overlapped_by_name([(n, a, b) for n, a, b, _ in events])
+    if over:
+        print("  overlapping device time per iteration by event: " + "; ".join(
+            f"{n[:60]} {v / iters / 1e3:.3f} ms"
+            for n, v in sorted(over.items(), key=lambda kv: -kv[1])[:6]))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"    {e.self_device_time_total / iters / 1e3:8.3f} ms "
               f"{e.count / iters:5.0f}× {e.key[:90]}")
@@ -1441,6 +1526,8 @@ def profile_window(step, iters, step_ms, watch=()):
               f"iteration: " + "; ".join(
                   f"{e.key[:60]} {e.self_device_time_total / iters / 1e3:.3f}"
                   f" ms ×{e.count / iters:.0f}" for e in hit))
+    return {"busy_ms": busy_us / iters / 1e3, "sum_ms": sum_us / iters / 1e3,
+            "wall_ms": wall_us / iters / 1e3, "busy_share": busy_us / wall_us}
 
 
 def phase_fit(dev, kernels):
@@ -2694,6 +2781,328 @@ def edit_with_sdxl(dev, kernels, pipe):
     return launches
 
 
+def host_ms(fn, iters=5, warmup=1):
+    """(median, min, max) host ms of `fn` over `iters` synchronised calls
+    (work that ends on the host: a mask or box as numpy)."""
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), min(out), max(out)
+
+
+def phase_segment(dev, kernels):
+    """The full LangSAM stack on random weights drawn on the card: SAM
+    ViT-H at 1024² and GroundingDINO Swin-T at 800² (256 text tokens, 900
+    queries, the hash tokenizer), each held in f32 against f64 on the card
+    and timed, then one SAMSegmenter.segment through a DinoGrounder and
+    LocalMeshEditing.localize on the edit phase's icosphere through it."""
+    from youreditableavatar_tpu_torch.guidance import grounding_dino as gd
+    from youreditableavatar_tpu_torch.guidance.manifests import sam_manifest
+    from youreditableavatar_tpu_torch.guidance.sam import (
+        SAM_VIT_H, SAMSegmenter, init_sam_params, sam_decode_masks,
+        sam_encode_box, sam_encode_image)
+    from youreditableavatar_tpu_torch.models.cameras import (
+        sample_ring_cameras)
+    from youreditableavatar_tpu_torch.ops.mesh_raster import (
+        MeshRasterConfig, rasterize_mesh)
+    from youreditableavatar_tpu_torch.stages.localization import (
+        LocalizationConfig, LocalMeshEditing)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = SAM_VIT_H
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sam = init_sam_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    t_sam = time.perf_counter() - t0
+    n_sam = no_network_grads(sam)
+    official = sum(int(np.prod(v)) for v in sam_manifest(cfg).values())
+    print(f"  SAM ViT-H random weights drawn on the card in {t_sam:.2f} s: "
+          f"{n_sam:,} parameters ({4 * n_sam / 2**30:.2f} GiB f32; the "
+          f"official checkpoint's {official:,})")
+    if n_sam != official:
+        raise AssertionError("SAM's parameter count differs from the "
+                             "official checkpoint's")
+    g = torch.Generator(device=dev).manual_seed(1)
+    s = cfg.img_size
+    img = torch.randn((1, s, s, 3), generator=g, device=dev)
+    box = torch.tensor([[212.0, 96.0, 801.0, 917.0]], device=dev)
+
+    def sam_logits(p, dt):
+        emb = sam_encode_image(p, img.to(dt), cfg)
+        return sam_decode_masks(p, emb, sam_encode_box(p, box.to(dt), s),
+                                cfg)[0]
+
+    check_f64("SAM ViT-H encoder + decoder mask logits (1024², one box)",
+              sam_logits, sam, SEG_F64_RTOL)
+    with torch.no_grad():
+        enc_ms = median_ms(lambda: sam_encode_image(sam, img, cfg))
+        enc_flops = flops_of(lambda: sam_encode_image(sam, img, cfg))
+        emb = sam_encode_image(sam, img, cfg)
+        toks = sam_encode_box(sam, box, s)
+        dec_ms = median_ms(lambda: sam_decode_masks(sam, emb, toks, cfg))
+    eb = bound(tree_bytes(sam["encoder"]) + 4 * img.numel(), enc_flops)
+    print(f"  device times (median of 5, CUDA events): sam_encode_image at "
+          f"1 × {s}² {fmt_ms(enc_ms)}, {enc_flops / 1e12:.3f} TFLOP → f32 "
+          f"bound {eb[0]:.3f} ms ({eb[1]}; {eb[0] / enc_ms[0]:.3f} of it); "
+          f"sam_decode_masks (one box, 4 masks at {4 * cfg.grid}²) "
+          f"{fmt_ms(dec_ms)}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del emb, toks
+    torch.cuda.empty_cache()
+
+    gcfg = gd.SWIN_T_GDINO
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dino = gd.init_gdino_params(torch.Generator(device=dev).manual_seed(2),
+                                gcfg)
+    torch.cuda.synchronize()
+    t_dino = time.perf_counter() - t0
+    n_dino = no_network_grads(dino)
+    print(f"  GroundingDINO Swin-T random weights drawn on the card in "
+          f"{t_dino:.2f} s: {n_dino:,} parameters "
+          f"({4 * n_dino / 2**30:.2f} GiB f32)")
+    if n_dino != GDINO_SWIN_T_PARAMS:
+        raise AssertionError(f"GroundingDINO's parameter count differs from "
+                             f"the JAX tree's {GDINO_SWIN_T_PARAMS:,}")
+    frame = torch.rand((SEG_DINO_SIZE, SEG_DINO_SIZE, 3), generator=g,
+                       device=dev)
+    tok, mask = gd.HashTokenizer(gcfg.vocab, gcfg.max_text_len)(
+        "a red down jacket .")
+    tok, mask = torch.tensor(tok, device=dev), torch.tensor(mask, device=dev)
+    n_tok = int(mask.sum())
+    # The f32 run's query selection is handed to the f64 and TF32 runs: a
+    # near-tie among 13,294 scores would otherwise reorder the queries and
+    # compare unrelated boxes.
+    top_of = gd._top_queries
+    picks = []
+
+    def ground(p, dt):
+        def top(score, k):
+            picks.append(top_of(score, k))
+            return picks[0]
+
+        gd._top_queries = top
+        try:
+            return gd.gdino_ground(p, frame.to(dt), tok, mask, gcfg)
+        finally:
+            gd._top_queries = top_of
+
+    check_f64("gdino_ground boxes (800², 256 tokens, 900 queries)",
+              lambda p, dt: ground(p, dt)["boxes"], dino, SEG_F64_RTOL)
+    check_f64("gdino_ground logits over the prompt's tokens",
+              lambda p, dt: ground(p, dt)["logits"][:, :n_tok], dino,
+              GDINO_LOGITS_F64_RTOL)
+    own = picks[1]  # the f64 run's own selection
+    print(f"  the f64 run's own top-900 against the f32 run's: "
+          f"{int((own == picks[0]).sum())} ranks equal, "
+          f"{len(set(own.tolist()) & set(picks[0].tolist()))} indices shared")
+    with torch.no_grad():
+        gd_ms = median_ms(lambda: gd.gdino_ground(dino, frame, tok, mask,
+                                                  gcfg))
+        gd_flops = flops_of(lambda: gd.gdino_ground(dino, frame, tok, mask,
+                                                    gcfg))
+        out = gd.gdino_ground(dino, frame, tok, mask, gcfg)
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError("gdino_ground gave non-finite values")
+    levels = [(SEG_DINO_SIZE + 2 ** (3 + i) - 1) // 2 ** (3 + i)
+              for i in range(3)]
+    levels.append((levels[-1] + 1) // 2)
+    print(f"  gdino_ground at {SEG_DINO_SIZE}² ({sum(x * x for x in levels):,}"
+          f" pyramid tokens over levels {levels}): {fmt_ms(gd_ms)} "
+          f"(median of 5, CUDA events), {gd_flops / 1e12:.3f} TFLOP of "
+          f"matmuls and convolutions; best score "
+          f"{float(out['scores'].max()):.4f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del out
+    torch.cuda.empty_cache()
+
+    # LangSAM: the GroundingDINO box, then SAM's mask (an untrained decoder:
+    # box ∩ foreground), as the factory's "sam" backend configures it.
+    grounder = gd.DinoGrounder(dino, gcfg, box_threshold=0.35,
+                               image_size=SEG_DINO_SIZE, device=dev)
+    seg = SAMSegmenter(sam, cfg, grounder=grounder, trust_decoder=False,
+                       device=dev)
+    verts, faces = icosphere(FIT_SUBDIV)
+    mcfg = MeshRasterConfig()
+    vt = torch.as_tensor(verts, dtype=torch.float32, device=dev)
+    ft = torch.as_tensor(faces, dtype=torch.int32, device=dev)
+    cams = sample_ring_cameras(counts=EDIT_RING, height=HEIGHT,
+                               width=WIDTH)[:3]
+    images = []
+    for cam in cams:
+        fid = rasterize_mesh(vt, ft, cam.raster_camera(dev),
+                             mcfg).face_id.cpu().numpy()
+        im = np.ones((HEIGHT, WIDTH, 3), np.float32)
+        im[fid >= 0] = 0.5
+        images.append(im)
+    box0 = grounder.ground(images[0], "the hat")
+    seg_ms = host_ms(lambda: seg.segment(images[0], "the hat"))
+    mask0 = seg.segment(images[0], "the hat")
+    # The untrained decoder's mask is the grounded box ∩ the foreground.
+    x0, y0, x1, y1 = box0.astype(int)
+    expect = np.zeros((HEIGHT, WIDTH), bool)
+    expect[y0:y1 + 1, x0:x1 + 1] = True
+    expect &= ~(images[0] > 0.95).all(-1)
+    print(f"  SAMSegmenter.segment with the DinoGrounder on a {WIDTH}² "
+          f"probe view: {fmt_ms(seg_ms)} (median of 5, host clock, "
+          f"synchronised); box {np.round(box0, 1).tolist()} (random "
+          f"weights), {int(mask0.sum())} mask pixels")
+    if not (mask0.dtype == bool and np.array_equal(mask0, expect)
+            and np.isfinite(box0).all()):
+        raise AssertionError("the LangSAM mask is not the box ∩ foreground")
+    busy = profile_window(lambda: seg.segment(images[0], "the hat"),
+                          iters=3, step_ms=seg_ms[0])
+    loc = LocalMeshEditing(verts, faces, seg, LocalizationConfig(mesh_cfg=mcfg),
+                           device=dev)
+    kernels.reset_launches()
+    loc_ms = host_ms(lambda: loc.localize(cams, images, "the hat"))
+    info = loc.localize(cams, images, "the hat")
+    k5 = kernels.LAUNCHES["mesh_resolve"]
+    fmask = info["editing_mask_faces"] > 0.5
+    print(f"  localize through LangSAM on {len(faces)} faces from "
+          f"{len(cams)} views at {WIDTH}²: {fmt_ms(loc_ms)} (median of 5, "
+          f"host clock); {int(fmask.sum())} faces and "
+          f"{int(info['editing_mask'].sum())} vertices selected; "
+          f"mesh_resolve launches {k5} over 7 calls; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (k5 == 7 * len(cams) and fmask.shape == (len(faces),)
+            and info["editing_mask"].shape == (len(verts),)):
+        raise AssertionError("localize did not run through the segmenter")
+    del seg, grounder, loc, sam, dino
+    torch.cuda.empty_cache()
+    return {"mesh_resolve": k5, "busy": busy}
+
+
+def phase_pipeline(dev, kernels):
+    """run_synthetic_pipeline (cli/pipeline.py) on the card at production
+    widths, cut in depth; each stage timed, its artifacts read back, every
+    kernel's launches counted; then the spatial CLI's --validate on the
+    produced checkpoint."""
+    import tempfile
+
+    from youreditableavatar_tpu_torch import native
+    from youreditableavatar_tpu_torch.cli import pipeline as pl
+    from youreditableavatar_tpu_torch.cli import train_spatial
+    from youreditableavatar_tpu_torch.models.tetgs import load_tetgs
+    from youreditableavatar_tpu_torch.stages import export
+
+    scale = pl.PipelineScale(**PIPE_DEPTH)
+    b = scale.budgets
+    n_field = sum(x.numel() for x in pl._field(scale).init_params(
+        0, device=dev).parameters())
+    print(f"  SDF field {n_field:,} parameters; scale: grid "
+          f"{scale.grid_res}, {scale.image_hw}², hash grid "
+          f"{scale.hashgrid.n_levels} × 2^{scale.hashgrid.log2_hashmap_size}, "
+          f"budgets {dataclasses.asdict(b)}, raster pair budget "
+          f"{scale.raster.pair_budget}, mesh pair budget "
+          f"{scale.mesh_raster.pair_budget}; depth {json.dumps(PIPE_DEPTH)}")
+    _, _, nv, nf = pl.synthetic_body(scale.grid_res, dev)
+    full = nv >= 8192 or nf >= 16384
+    print(f"  synthetic body: marching tets at grid {scale.grid_res} gives "
+          f"{nv} vertices and {nf} faces against the fixed budgets 8192 / "
+          f"16384" + (": SATURATED, the body is cut at the budget"
+                      if full else ": within them"))
+
+    # Each stage's seconds, and the shape init's MeshSDF pool signs apart.
+    sink: dict = {}
+    wrapped = [(pl, "run_spatial_stage"), (pl, "run_init_texture_stage"),
+               (pl, "run_edit_texture_stage"), (native.MeshSDF, "__call__")]
+    saved = [getattr(m, n) for m, n in wrapped]
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                sink.setdefault(key, []).append(time.perf_counter() - t0)
+        return call
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".pipeline_") as out:
+        for (m, n), fn in zip(wrapped, saved):
+            setattr(m, n, timed(fn, n))
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            arts = pl.run_synthetic_pipeline(out, scale, device=dev)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        finally:
+            for (m, n), fn in zip(wrapped, saved):
+                setattr(m, n, fn)
+        launches = dict(kernels.LAUNCHES)
+        sp = sink["run_spatial_stage"]
+        signs = " / ".join(f"{t:.2f}" for t in sink["__call__"])
+        print(f"  run_synthetic_pipeline {total:.2f} s: spatial init "
+              f"{sp[0]:.2f} s, init texture + localization "
+              f"{sink['run_init_texture_stage'][0]:.2f} s, spatial init + "
+              f"edit {sp[1]:.2f} s (each shape init's MeshSDF signs of its "
+              f"pool: {signs} s), edit texture "
+              f"{sink['run_edit_texture_stage'][0]:.2f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        print(f"  kernel launches over the pipeline: {json.dumps(launches)}")
+        missing = [k for k in PIPE_KERNELS if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"the pipeline never launched {missing}")
+
+        init = export.load_init_mesh(arts["init_mesh"])
+        region = export.load_editing_region_info(arts["editing_region_info"])
+        edit = export.load_edit_mesh(arts["edit_mesh"])
+        _, tparams, _ = load_tetgs(arts["tetgs_init"], device=dev)
+        finals = sorted(os.listdir(arts["final_dir"]))
+        print(f"  artifacts: init_mesh {init['vertices'].shape} vertices, "
+              f"{init['faces'].shape} faces; editing_region_info "
+              f"{int(region['editing_mask'].sum())} of "
+              f"{len(region['editing_mask'])} vertices, "
+              f"{int((region['editing_mask_faces'] > 0.5).sum())} faces; "
+              f"edit_mesh {edit['vertices'].shape} vertices (keep "
+              f"{int(edit['keep_vertices_num'])}), {edit['faces'].shape} "
+              f"faces, {int(edit['editing_mask'].sum())} editable; "
+              f"tetgs_init {tuple(tparams.delta.shape[:1])} Gaussians; "
+              f"{len(finals)} final frames")
+        if not (init["faces"].max() < len(init["vertices"])
+                and edit["keep_vertices_num"] > 0
+                and edit["editing_mask"].sum() > 0
+                and len(finals) == scale.turntable_views):
+            raise AssertionError("the pipeline's artifacts are incomplete")
+
+        # The device's share of one edit-texture stage, re-run on the
+        # pipeline's artifacts.
+        edit_s = sink["run_edit_texture_stage"][0]
+        busy = profile_window(
+            lambda: pl.run_edit_texture_stage(
+                os.path.join(out, "profiled"), arts["edit_mesh"],
+                arts["tetgs_init"], "a red jacket", scale, device=dev),
+            iters=1, step_ms=edit_s * 1e3)
+
+        vdir = os.path.join(out, "cli")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_spatial.main(["--config", os.path.join(
+            root, "configs", "geometry-init.yaml"), "--validate",
+            "--ckpt", arts["ckpt"], "--out", vdir, "--device", str(dev)])
+        torch.cuda.synchronize()
+        frames = [f for f in os.listdir(os.path.join(vdir, "validation"))
+                  if f.endswith(".png")]
+        print(f"  train_spatial --validate on the produced checkpoint: "
+              f"{len(frames)} frames in {time.perf_counter() - t0:.2f} s")
+        if len(frames) != 8:
+            raise AssertionError("the spatial CLI's --validate wrote "
+                                 f"{len(frames)} frames")
+    return {**launches, "busy": busy}
+
+
 def phase_mesh(dev, kernels):
     """`models/mesh.Mesh` (UV atlas, tangents) and `ops/shape_loss`'s
     winding numbers on the 81,920-face icosphere."""
@@ -2991,6 +3400,8 @@ def main(argv) -> int:
         "mesh": lambda: phase_mesh(dev, _kernels),
         "sd15": lambda: phase_sd15(dev, _kernels),
         "sdxl": lambda: phase_sdxl(dev, _kernels),
+        "segment": lambda: phase_segment(dev, _kernels),
+        "pipeline": lambda: phase_pipeline(dev, _kernels),
         "sharded": lambda: phase_sharded(dev, _kernels),
     }
     chosen = list(phases) if only is None else only

@@ -1,2 +1,3 @@
-"""Guidance backends: the protocols the stages call, weight-free stubs, and
-the diffusion networks (SD1.5; SDXL + ControlNet-Union) behind them."""
+"""Guidance backends: the protocols the stages call, weight-free stubs, the
+diffusion networks (SD1.5; SDXL + ControlNet-Union) and the segmentation
+networks (SAM, GroundingDINO with its WordPiece tokenizer) behind them."""

@@ -1,12 +1,11 @@
-"""Guidance backend factory: name → (DiffusionPrior, PromptEncoder), and
-name → Inpainter.
+"""Guidance backend factory: name → (DiffusionPrior, PromptEncoder),
+name → Inpainter and name → Segmenter.
 
-Counterpart of the diffusion half of `youreditableavatar_tpu/guidance/
-factory.py`: the real SD1.5 and SDXL backends load diffusers-format
-weights from a directory the user supplies (none ship with the
-repository); without weights the stubs, or tiny random-weight networks
-that run the whole real code path, keep every stage runnable. The
-segmenter backends (SAM, GroundingDINO) are not ported yet.
+Counterpart of `youreditableavatar_tpu/guidance/factory.py`: the real
+SD1.5, SDXL, SAM and GroundingDINO backends load weights the user supplies
+(none ship with the repository); without weights the stubs and heuristics,
+or tiny random-weight networks that run the whole real code path, keep
+every stage runnable.
 """
 
 from __future__ import annotations
@@ -173,3 +172,111 @@ def make_inpainter_backend(
         )
 
     raise ValueError(f"unknown inpainter backend {name!r}")
+
+
+def make_segmenter_backend(
+    name: str = "heuristic",
+    weights_path: Optional[str] = None,
+    seed: int = 0,
+    dino_weights: Optional[str] = None,
+    dino_vocab: Optional[str] = None,
+    device=None,
+):
+    """Build a `Segmenter` for region localization (LangSAM's role).
+
+    name:
+      "heuristic"      — foreground-band heuristic (weight-free).
+      "sam"            — SAM; `weights_path` = an official sam_vit_*.pth
+                         (the vit_b / vit_l config picked by the file name,
+                         else ViT-H); with `dino_weights`
+                         (groundingdino_swint_ogc.pth) the box comes from
+                         GroundingDINO: the full LangSAM.
+      "sam-random"     — tiny random-weight SAM (the whole architecture;
+                         the mask falls back to the grounded box).
+      "langsam-random" — random-weight SAM + GroundingDINO chained: the
+                         whole LangSAM path, weight-free.
+    """
+    if name == "heuristic":
+        from youreditableavatar_tpu_torch.stages.localization import (
+            HeuristicSegmenter)
+
+        return HeuristicSegmenter()
+
+    if name == "sam-random":
+        from youreditableavatar_tpu_torch.guidance.sam import SAMSegmenter
+
+        return SAMSegmenter.random_init(_generator(seed, device),
+                                        device=device)
+
+    if name == "langsam-random":
+        from youreditableavatar_tpu_torch.guidance.grounding_dino import (
+            DinoGrounder)
+        from youreditableavatar_tpu_torch.guidance.sam import SAMSegmenter
+
+        return SAMSegmenter.random_init(
+            _generator(seed, device),
+            grounder=DinoGrounder.random_init(_generator(seed + 1, device),
+                                              device=device),
+            device=device,
+        )
+
+    if name == "sam":
+        from youreditableavatar_tpu_torch.guidance.sam import (
+            SAM_VIT_B,
+            SAM_VIT_H,
+            SAM_VIT_L,
+            SAMSegmenter,
+        )
+
+        if not weights_path or not os.path.exists(weights_path):
+            raise FileNotFoundError(
+                f"sam backend needs --sam-weights (got {weights_path!r}); "
+                f"use 'heuristic' or 'sam-random' to run without weights"
+            )
+        base = os.path.basename(weights_path)
+        cfg = SAM_VIT_H
+        if "vit_b" in base:
+            cfg = SAM_VIT_B
+        elif "vit_l" in base:
+            cfg = SAM_VIT_L
+        grounder = None
+        if dino_weights:
+            from youreditableavatar_tpu_torch.guidance.grounding_dino import (
+                SWIN_T_GDINO,
+                DinoGrounder,
+                convert_torch_gdino,
+            )
+
+            sd = torch.load(dino_weights, map_location="cpu",
+                            weights_only=True)
+            sd = sd.get("model", sd)
+            # Real checkpoints need the real BERT WordPiece tokenizer:
+            # --dino-vocab, or a vocab.txt next to the weights (the official
+            # layout). Without one, the hash stand-in (its ids do NOT match
+            # BERT's training), with a warning.
+            tokenizer = None
+            vocab = dino_vocab or os.path.join(
+                os.path.dirname(dino_weights) or ".", "vocab.txt")
+            if os.path.exists(vocab):
+                from youreditableavatar_tpu_torch.guidance.wordpiece import (
+                    WordPieceTokenizer)
+
+                tokenizer = WordPieceTokenizer(
+                    vocab, max_len=SWIN_T_GDINO.max_text_len)
+            else:
+                import warnings
+
+                warnings.warn(
+                    f"no BERT vocab.txt found for GroundingDINO (looked at "
+                    f"{vocab!r}); falling back to the hash tokenizer — "
+                    f"grounding quality will be poor with real weights"
+                )
+            grounder = DinoGrounder(
+                convert_torch_gdino(sd, SWIN_T_GDINO), SWIN_T_GDINO,
+                tokenizer=tokenizer, box_threshold=0.35, image_size=800,
+                device=device,
+            )
+        return SAMSegmenter.from_torch_file(weights_path, cfg,
+                                            grounder=grounder, device=device)
+
+    raise ValueError(f"unknown segmenter backend {name!r}")

@@ -43,6 +43,17 @@ def build_cov3d(scales: Tensor, quats: Tensor, scale_mod: float = 1.0) -> Tensor
     return torch.stack([xx, xy, xz, yy, yz, zz], dim=-1)
 
 
+def cov3d_to_matrix(cov6: Tensor) -> Tensor:
+    """(..., 6) unique entries (xx, xy, xz, yy, yz, zz) → (..., 3, 3)."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    rows = [
+        torch.stack([xx, xy, xz], dim=-1),
+        torch.stack([xy, yy, yz], dim=-1),
+        torch.stack([xz, yz, zz], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)
+
+
 def view_transform_points(means: Tensor, viewmat: Tensor) -> Tensor:
     """p_cam = W p + t, expanded."""
     w = viewmat

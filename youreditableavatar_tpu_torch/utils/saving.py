@@ -23,10 +23,40 @@ def _to_uint8(img: np.ndarray) -> np.ndarray:
     return img
 
 
-def save_image(path: str, img: np.ndarray) -> str:
-    import imageio.v2 as imageio
+def _write_png(path: str, img: np.ndarray) -> None:
+    """8-bit PNG through the standard library (zlib): the frames of a
+    machine without imageio."""
+    import struct
+    import zlib
 
+    h, w, c = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          img.reshape(h, w * c)], axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    color = {1: 0, 3: 2, 4: 6}[c]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0,
+                                             0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+
+
+def save_image(path: str, img: np.ndarray) -> str:
+    """Write an image; imageio's writer, else (no imageio installed) the
+    standard library's PNG for a .png path."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        if not path.lower().endswith(".png"):
+            raise
+        _write_png(path, _to_uint8(img))
+        return path
     imageio.imwrite(path, _to_uint8(img))
     return path
 
