@@ -1,0 +1,11 @@
+"""Device idle ms a step charged to the program's `edit.optimizer` span: idle
+instants of the profiled window while the host was in it
+(`benchmark/core/spans.py`). The profiler stretches the host's work, so
+idle reads higher there than in the unprofiled step. Reads
+`optimizer_idle_ms.<anything>`."""
+
+from benchmark.core import spans
+
+
+def read(run, kernels):
+    return spans.idle_ms(run, ("edit.optimizer",))

@@ -214,23 +214,13 @@ def test_assert_replicated_single_process_is_a_no_op():
 
 
 def test_step_timer_and_metrics_logger_match_jax(tmp_path):
-    """The same timings summarise to the same keys and values; the same
-    metrics give the same JSONL line (but for the wall-clock `time`)."""
+    """The same metrics give the same JSONL line (but for the wall-clock
+    `time`). The port has no `StepTimer`: its every mark waited for the
+    card."""
     from youreditableavatar_tpu.utils import profiling as jprof
     from youreditableavatar_tpu_torch.utils import profiling as tprof
 
-    times = [0.5, 0.010, 0.012, 0.011, 0.030]
-    summaries = []
-    for mod in (jprof, tprof):
-        timer = mod.StepTimer("fit")
-        timer.times = list(times)
-        summaries.append(timer.summary())
-    assert summaries[1] == summaries[0]
-    timer = tprof.StepTimer("probe")
-    timer.start()
-    timer.stop()
-    assert len(timer.times) == 1 and timer.summary()["probe_steps"] == 1
-
+    assert not hasattr(tprof, "StepTimer")
     lines = []
     for mod, scalar in ((jprof, jnp.float32(0.25)), (tprof, torch.tensor(0.25))):
         logger = mod.MetricsLogger(str(tmp_path / mod.__name__))
@@ -245,11 +235,22 @@ def test_step_timer_and_metrics_logger_match_jax(tmp_path):
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
-    from youreditableavatar_tpu_torch.utils.profiling import trace
+    """The Chrome trace carries each span over its ops, and the spans'
+    records go beside it."""
+    from youreditableavatar_tpu_torch.utils.profiling import (
+        span, take_spans, trace)
 
     with trace(str(tmp_path / "prof")):
-        torch.ones(64).cumsum(0)
-    assert json.loads((tmp_path / "prof" / "trace.json").read_text())
+        with span("outer"):
+            with span("inner"):
+                torch.ones(64).cumsum(0)
+    chrome = json.loads((tmp_path / "prof" / "trace.json").read_text())
+    names = {e.get("name") for e in chrome["traceEvents"]}
+    assert {"outer", "inner", "aten::cumsum"} <= names
+    spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert [(s["name"], s["parent"], s["root"]) for s in spans] == [
+        ("outer", -1, 0), ("inner", 0, 0)]
+    assert take_spans() == []
 
 
 def test_misc_helpers():

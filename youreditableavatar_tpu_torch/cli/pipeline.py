@@ -217,7 +217,8 @@ def run_spatial_stage(
     )
     ckpt_path = os.path.join(out_dir, "initial_checkpoint")
     save_state(ckpt_path, params, step=0)
-    metrics.log(0, stage="shape_init", final_loss=info["losses"][-1])
+    metrics.log(0, stage="shape_init", final_loss=info["losses"][-1],
+                pool_s=info["pool_s"])
 
     with torch.no_grad():
         mt = geometry.isosurface(params)

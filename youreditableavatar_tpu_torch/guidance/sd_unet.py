@@ -40,6 +40,7 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     t2t,
     timestep_embedding,
 )
+from youreditableavatar_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,19 +191,20 @@ def apply_unet(params: Params, z: Tensor, t: Tensor, ctx: Tensor,
 
     Composed of the stage functions below, as in the JAX package.
     """
-    h, skips, temb = apply_unet_down(params, z, t, ctx, cfg, add_cond)
-    if control_residuals is not None:
-        down_res, mid_res = control_residuals
-        skips = [s + r for s, r in zip(skips, down_res)]
-    h = apply_unet_mid(params, h, temb, ctx, cfg)
-    if control_residuals is not None and mid_res is not None:
-        h = h + mid_res
-    for i in range(len(params["up"])):
-        k = len(params["up"][i]["resnets"])
-        h = apply_unet_up_level(params, i, h, tuple(skips[-k:]), temb, ctx,
-                                cfg)
-        del skips[-k:]
-    return apply_unet_out(params, h, cfg)
+    with span("unet"):
+        h, skips, temb = apply_unet_down(params, z, t, ctx, cfg, add_cond)
+        if control_residuals is not None:
+            down_res, mid_res = control_residuals
+            skips = [s + r for s, r in zip(skips, down_res)]
+        h = apply_unet_mid(params, h, temb, ctx, cfg)
+        if control_residuals is not None and mid_res is not None:
+            h = h + mid_res
+        for i in range(len(params["up"])):
+            k = len(params["up"][i]["resnets"])
+            h = apply_unet_up_level(params, i, h, tuple(skips[-k:]), temb,
+                                    ctx, cfg)
+            del skips[-k:]
+        return apply_unet_out(params, h, cfg)
 
 
 def apply_unet_down(params, z, t, ctx, cfg, add_cond=None):

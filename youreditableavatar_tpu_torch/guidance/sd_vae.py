@@ -36,6 +36,7 @@ from youreditableavatar_tpu_torch.guidance.sd_unet import (
     _resnet_from_torch,
     upsample_nearest2x,
 )
+from youreditableavatar_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,10 +148,12 @@ def vae_encode(params: Params, images: Tensor,
     """A posterior sample mean + std·ε (UNSCALED latents; the caller applies
     cfg.scaling_factor). ε is `noise` when given, else drawn from
     `generator`."""
-    mean, logvar = vae_encode_moments(params, images, cfg)
-    if noise is None:
-        noise = randn_like_on(mean, generator)
-    return mean + torch.exp(0.5 * logvar) * noise.to(mean.device, mean.dtype)
+    with span("vae_encode"):
+        mean, logvar = vae_encode_moments(params, images, cfg)
+        if noise is None:
+            noise = randn_like_on(mean, generator)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.device,
+                                                         mean.dtype)
 
 
 def randn_like_on(x: Tensor, generator: Optional[torch.Generator]) -> Tensor:
@@ -164,18 +167,19 @@ def randn_like_on(x: Tensor, generator: Optional[torch.Generator]) -> Tensor:
 def vae_decode(params: Params, latents: Tensor,
                cfg: VAEConfig = TEST_VAE) -> Tensor:
     """UNSCALED (B, h, w, C) latents → (B, H, W, 3) in [-1, 1]."""
-    dec = params["decoder"]
-    h = conv2d(conv2d(latents, params["post_quant"]), dec["conv_in"])
-    h = resnet_block(h, None, dec["mid"]["res1"], cfg.groups, eps=1e-6)
-    h = self_attention_2d(h, dec["mid"]["attn"], cfg.groups, eps=1e-6)
-    h = resnet_block(h, None, dec["mid"]["res2"], cfg.groups, eps=1e-6)
-    for level in dec["up"]:
-        for res in level["resnets"]:
-            h = resnet_block(h, None, res, cfg.groups, eps=1e-6)
-        if "up" in level:
-            h = conv2d(upsample_nearest2x(h), level["up"])
-    h = F.silu(group_norm(h, dec["norm_out"], cfg.groups, eps=1e-6))
-    return conv2d(h, dec["conv_out"])
+    with span("vae_decode"):
+        dec = params["decoder"]
+        h = conv2d(conv2d(latents, params["post_quant"]), dec["conv_in"])
+        h = resnet_block(h, None, dec["mid"]["res1"], cfg.groups, eps=1e-6)
+        h = self_attention_2d(h, dec["mid"]["attn"], cfg.groups, eps=1e-6)
+        h = resnet_block(h, None, dec["mid"]["res2"], cfg.groups, eps=1e-6)
+        for level in dec["up"]:
+            for res in level["resnets"]:
+                h = resnet_block(h, None, res, cfg.groups, eps=1e-6)
+            if "up" in level:
+                h = conv2d(upsample_nearest2x(h), level["up"])
+        h = F.silu(group_norm(h, dec["norm_out"], cfg.groups, eps=1e-6))
+        return conv2d(h, dec["conv_out"])
 
 
 # ------------------------------------------------------- torch conversion

@@ -60,6 +60,7 @@ from youreditableavatar_tpu_torch.guidance.sd_unet import (
     apply_unet_mid,
     unet_time_embedding,
 )
+from youreditableavatar_tpu_torch.utils.profiling import span
 
 NUM_CONTROL_TYPES = 8  # openpose, depth, … normal (4), … per union-promax
 
@@ -208,59 +209,62 @@ def apply_controlnet_union(
     Returns (down residuals, mid residual), scaled by conditioning_scale,
     for `apply_unet(..., control_residuals=...)`.
     """
-    u = cfg.unet
-    temb = unet_time_embedding(params, t, u, add_cond)
+    with span("controlnet"):
+        u = cfg.unet
+        temb = unet_time_embedding(params, t, u, add_cond)
 
-    # Control-type embedding: a one-hot over the active types → sinusoids.
-    b = z.shape[0]
-    type_vec = torch.zeros((cfg.num_control_types,), device=z.device)
-    for idx, _ in controls:
-        type_vec[idx] = 1.0
-    tid = timestep_embedding(type_vec, cfg.control_time_dim).reshape(
-        1, cfg.num_control_types * cfg.control_time_dim).expand(b, -1)
-    temb = temb + linear(F.silu(linear(tid, params["ctrl_add1"])),
-                         params["ctrl_add2"])
+        # Control-type embedding: a one-hot over the active types →
+        # sinusoids.
+        b = z.shape[0]
+        type_vec = torch.zeros((cfg.num_control_types,), device=z.device)
+        for idx, _ in controls:
+            type_vec[idx] = 1.0
+        tid = timestep_embedding(type_vec, cfg.control_time_dim).reshape(
+            1, cfg.num_control_types * cfg.control_time_dim).expand(b, -1)
+        temb = temb + linear(F.silu(linear(tid, params["ctrl_add1"])),
+                             params["ctrl_add2"])
 
-    # Sample + condition fusing (the union "condition transformer").
-    sample = conv2d(z, params["conv_in"])
-    cond_feats, tokens = [], []
-    for idx, img in controls:
-        feat = _cond_embed(params["cond_embed"], img)
-        cond_feats.append(feat)
-        tokens.append(feat.mean(dim=(1, 2)) + params["task_emb"][idx])
-    tokens.append(sample.mean(dim=(1, 2)))
-    # (B, L, C) → (L, B, C): attention runs over the batch for each token
-    # slot, as batch_first=False does in the vendored model.
-    x = torch.stack(tokens, dim=1).transpose(0, 1)
-    for blk in params["fuser"]:
-        x = _fuser_block(x, blk, cfg.fuser_heads)
-    x = x.transpose(0, 1)
-    fused = torch.zeros_like(sample)
-    for i, feat in enumerate(cond_feats):
-        alpha = linear(x[:, i], params["spatial_proj"])
-        fused = fused + feat + alpha[:, None, None, :]
-    h = sample + fused
+        # Sample + condition fusing (the union "condition transformer").
+        sample = conv2d(z, params["conv_in"])
+        cond_feats, tokens = [], []
+        for idx, img in controls:
+            feat = _cond_embed(params["cond_embed"], img)
+            cond_feats.append(feat)
+            tokens.append(feat.mean(dim=(1, 2)) + params["task_emb"][idx])
+        tokens.append(sample.mean(dim=(1, 2)))
+        # (B, L, C) → (L, B, C): attention runs over the batch for each token
+        # slot, as batch_first=False does in the vendored model.
+        x = torch.stack(tokens, dim=1).transpose(0, 1)
+        for blk in params["fuser"]:
+            x = _fuser_block(x, blk, cfg.fuser_heads)
+        x = x.transpose(0, 1)
+        fused = torch.zeros_like(sample)
+        for i, feat in enumerate(cond_feats):
+            alpha = linear(x[:, i], params["spatial_proj"])
+            fused = fused + feat + alpha[:, None, None, :]
+        h = sample + fused
 
-    # The down + mid clone, tapped by the zero convs.
-    chans = [u.base * m for m in u.mults]
-    taps = [h]
-    for lvl, level in enumerate(params["down"]):
-        for j, res in enumerate(level["resnets"]):
-            h = resnet_block(h, temb, res, u.groups)
-            if level["attns"]:
-                h = spatial_transformer(h, ctx, level["attns"][j],
-                                        u.heads(chans[lvl]), u.groups)
-            taps.append(h)
-        if "down" in level:
-            # diffusers' Downsample2D pads (1, 1), not "SAME".
-            h = conv2d(h, level["down"], stride=2, padding=((1, 1), (1, 1)))
-            taps.append(h)
-    h = apply_unet_mid(params, h, temb, ctx, u)
+        # The down + mid clone, tapped by the zero convs.
+        chans = [u.base * m for m in u.mults]
+        taps = [h]
+        for lvl, level in enumerate(params["down"]):
+            for j, res in enumerate(level["resnets"]):
+                h = resnet_block(h, temb, res, u.groups)
+                if level["attns"]:
+                    h = spatial_transformer(h, ctx, level["attns"][j],
+                                            u.heads(chans[lvl]), u.groups)
+                taps.append(h)
+            if "down" in level:
+                # diffusers' Downsample2D pads (1, 1), not "SAME".
+                h = conv2d(h, level["down"], stride=2,
+                           padding=((1, 1), (1, 1)))
+                taps.append(h)
+        h = apply_unet_mid(params, h, temb, ctx, u)
 
-    down_res = [conv2d(tap, zc) * conditioning_scale
-                for tap, zc in zip(taps, params["zero_convs"])]
-    mid_res = conv2d(h, params["mid_zero"]) * conditioning_scale
-    return down_res, mid_res
+        down_res = [conv2d(tap, zc) * conditioning_scale
+                    for tap, zc in zip(taps, params["zero_convs"])]
+        mid_res = conv2d(h, params["mid_zero"]) * conditioning_scale
+        return down_res, mid_res
 
 
 # ------------------------------------------------------- torch conversion

@@ -64,6 +64,7 @@ from youreditableavatar_tpu_torch.guidance.sdxl_controlnet import (
     init_controlnet_union_params,
 )
 from youreditableavatar_tpu_torch.utils.device import resolve_device
+from youreditableavatar_tpu_torch.utils.profiling import span
 
 # union-promax control-type slots (controlnet_union README ordering)
 CTRL_OPENPOSE, CTRL_DEPTH, CTRL_HED, CTRL_CANNY = 0, 1, 2, 3
@@ -144,9 +145,10 @@ class SDXLControlNetUnionPipeline:
     # ------------------------------------------------------------ internals
 
     def _encode_prompt(self, prompt: str, negative: str):
-        cond = self.text_encoder.encode_with_pooled([prompt])
-        uncond = self.text_encoder.encode_with_pooled([negative])
-        return cond, uncond
+        with span("text"):
+            cond = self.text_encoder.encode_with_pooled([prompt])
+            uncond = self.text_encoder.encode_with_pooled([negative])
+            return cond, uncond
 
     def _timesteps(self, steps: int, strength: float) -> np.ndarray:
         t_total = self.cfg.num_train_timesteps
@@ -232,7 +234,7 @@ class SDXLControlNetUnionPipeline:
         image/control_*: (H, W, 3) in [0, 1]; mask: (H, W), 1 = repaint.
         Returns the (H, W, 3) result on the pipeline's device.
         """
-        with torch.no_grad():
+        with span("inpaint.call"), torch.no_grad():
             image = self._image(image)
             z_orig = self._encode_image(image, generator, draws)
             # Nearest with half-pixel centres (pixel 8i + 4 at a factor of

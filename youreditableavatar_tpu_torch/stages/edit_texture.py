@@ -59,6 +59,7 @@ from youreditableavatar_tpu_torch.stages.init_texture import (
     auto_size_raster_config,
 )
 from youreditableavatar_tpu_torch.utils.device import resolve_device
+from youreditableavatar_tpu_torch.utils.profiling import span
 from youreditableavatar_tpu_torch.utils.registry import register
 
 
@@ -484,29 +485,37 @@ class RefineTrainer:
 
     def step(self, view_idx: int):
         """One refine step on view `view_idx`: (loss, diagnostics)."""
+        with span("refine.step"):
+            return self._step(view_idx)
+
+    def _step(self, view_idx: int):
         cfg = self.cfg
         weight = cfg.key_view_weight if view_idx in cfg.key_views else 1.0
         self.optimizer.zero_grad(set_to_none=True)
-        out = render_edit_tetgs(self.binding, self.params,
-                                self.stack.camera(view_idx), self._rcfg(),
-                                self._bg())
-        target = self.images[view_idx]
-        loss = weight * l1_dssim(out["image"], target, cfg.dssim_factor)
-        if self._lpips is not None:
-            loss = loss + cfg.lambda_perceptual * self._lpips(
-                out["image"][None], target[None])
-        if cfg.scaling_reg:
-            scales = torch.exp(self.params.log_scales)
-            max_v = torch.max(scales, dim=-1).values
-            min_v = torch.min(scales, dim=-1).values
-            ratio = max_v / torch.clamp(min_v, min=1e-12)
-            bad = (ratio > 10.0) & (max_v > 0.1)
-            cnt = torch.sum(bad)
-            loss = loss + torch.sum(
-                torch.where(bad, max_v, torch.zeros_like(max_v))
-            ) / torch.clamp(cnt, min=1)
-        loss.backward()
-        self.optimizer.step()
+        with span("refine.render"):
+            out = render_edit_tetgs(self.binding, self.params,
+                                    self.stack.camera(view_idx),
+                                    self._rcfg(), self._bg())
+        with span("refine.losses"):
+            target = self.images[view_idx]
+            loss = weight * l1_dssim(out["image"], target, cfg.dssim_factor)
+            if self._lpips is not None:
+                loss = loss + cfg.lambda_perceptual * self._lpips(
+                    out["image"][None], target[None])
+            if cfg.scaling_reg:
+                scales = torch.exp(self.params.log_scales)
+                max_v = torch.max(scales, dim=-1).values
+                min_v = torch.min(scales, dim=-1).values
+                ratio = max_v / torch.clamp(min_v, min=1e-12)
+                bad = (ratio > 10.0) & (max_v > 0.1)
+                cnt = torch.sum(bad)
+                loss = loss + torch.sum(
+                    torch.where(bad, max_v, torch.zeros_like(max_v))
+                ) / torch.clamp(cnt, min=1)
+        with span("refine.backward"):
+            loss.backward()
+        with span("refine.optimizer"):
+            self.optimizer.step()
         diag = {"num_pairs": out["num_pairs"],
                 "num_tile_overflow": out["num_tile_overflow"]}
         return loss.detach(), diag

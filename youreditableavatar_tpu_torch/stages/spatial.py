@@ -36,6 +36,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import os
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -63,6 +64,7 @@ from youreditableavatar_tpu_torch.ops.gaussian_raster import BudgetGovernor
 from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
 from youreditableavatar_tpu_torch.utils.device import resolve_device
 from youreditableavatar_tpu_torch.utils.optim import parse_optimizer
+from youreditableavatar_tpu_torch.utils.profiling import span
 from youreditableavatar_tpu_torch.utils.registry import register
 from youreditableavatar_tpu_torch.utils.schedule import C, ScheduleSpec
 
@@ -170,7 +172,10 @@ class ShapeInitializer:
     ) -> Tuple[SDFParams, Dict[str, Any]]:
         """Fit the SDF to the body mesh, from `params` (else fresh
         parameters drawn from `seed`). With `debug_dir` set, exports the GT
-        body mesh and the fitted isosurface as PLYs after each phase."""
+        body mesh and the fitted isosurface as PLYs after each phase.
+        Returns (params, info): `losses` (every 500th SDF and 100th normal
+        step), `pool_size`, and `pool_s`, the host seconds of the MeshSDF
+        pool."""
         cfg = self.cfg
         dev = self.device
         self.seed = seed
@@ -178,13 +183,16 @@ class ShapeInitializer:
         if params is None:
             params = self.field.init_params(_generator(seed, 3), device=dev)
 
-        # Host: signed distance oracle + pre-sampled pool.
+        # Host: signed distance oracle + pre-sampled pool (host work only,
+        # so the host clock times it).
+        t0 = time.perf_counter()
         mesh_sdf = MeshSDF(verts, faces)
         self.using_native = mesh_sdf.using_native
         rng = np.random.default_rng(self.draw("pool", 0))
         pool = rng.uniform(-1, 1, (cfg.sdf_pool_size, 3)).astype(np.float32)
         # MeshSDF is positive outside, as is the field.
         pool_sdf = mesh_sdf(pool)
+        pool_s = time.perf_counter() - t0
         pool_t = torch.as_tensor(pool, device=dev)
         pool_sdf_t = torch.as_tensor(pool_sdf, device=dev)
 
@@ -255,7 +263,8 @@ class ShapeInitializer:
                 losses.append(float(loss.detach()))
 
         _dump("normal_phase")
-        return params, {"losses": losses, "pool_size": cfg.sdf_pool_size}
+        return params, {"losses": losses, "pool_size": cfg.sdf_pool_size,
+                        "pool_s": pool_s}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -437,86 +446,106 @@ class HumanEditTrainer:
               < n_active).to(torch.float32)
 
         self.optimizer.zero_grad(set_to_none=True)
-        mt, new_cache, maps, normal_img = self._render(
-            use_global, cam_l, cam_g, sdf_cache, refresh_idx, n_active)
-        if cfg.use_sds:
-            sds = self.guidance(normal_img[None], cond, uncond, None, min_t,
-                                max_t, t=draws["t"], noise=draws["noise"],
-                                enc_noise=draws.get("enc_noise"))
-            loss = weights["sds"] * sds["loss_sds"]
-            guide_aux = {"sds": sds["loss_sds"]}
-        else:
-            # du edit mode: pull the render toward the cached multi-step
-            # edit `du_gt` (refreshed in train_step).
-            du = self.guidance.du_loss_terms(
-                normal_img[None], du_gt[None],
-                enc_noise=draws.get("enc_noise"))
-            loss = (weights["du_f"] * du["loss_f"]
-                    + weights["du_l1"] * du["loss_l1"])
-            if "loss_p" in du:
-                loss = loss + weights["du_p"] * du["loss_p"]
-            guide_aux = {"du_f": du["loss_f"], "du_l1": du["loss_l1"]}
-
-        # Surface-aware recon: keep-region vertices must match the frozen
-        # field.
-        k_idx = draws["recon_idx"]
-        live = field.forward_sdf(p, geometry.grid_pos[k_idx], level_mask=lm,
-                                 n_active=n_active)
-        frozen = self.recon_sdf[k_idx]
-        keep_w = (~part.live_vert_mask[k_idx]).to(torch.float32)
-        loss_recon = torch.sum(keep_w * (live - frozen) ** 2)
-        loss = loss + weights["recon"] * loss_recon
-
-        # HumanNorm control-SDF on the edit region (snapshotted live field
-        # after warmup).
-        if weights["control"] > 0:
-            loss_ctrl = torch.sum(part.live_vert_mask[k_idx].to(torch.float32)
-                                  * (live - control_sdf[k_idx]) ** 2)
-        else:
-            loss_ctrl = torch.zeros((), device=self.device)
-        loss = loss + weights["control"] * loss_ctrl
-
-        loss_nc = normal_consistency(mt)
-        loss = loss + weights["nc"] * loss_nc
-
-        pairs = maps["local_num_pairs"]
-        if use_global:
-            pairs = torch.maximum(pairs, maps["global_num_pairs"])
-        aux = {
-            **guide_aux,
-            "recon": loss_recon,
-            "control": loss_ctrl,
-            "nc": loss_nc,
-            # mesh-raster pairs (max over the views rendered this step),
-            # compared against mesh_cfg.pair_budget by the governor
-            "mesh_pairs": pairs.to(torch.float32),
-        }
-
-        if cfg.use_additional_input:
-            # Image-guided editing: MSE between the update-region normals
-            # and the front/back GT normal image, + silhouette L2 on the
-            # front mask.
-            upd = maps["local_update_mask"][..., None]
-            pred_n = upd * maps["local_comp_normal"] + 0.5 * (1.0 - upd)
-            gt_n = upd * guide_normal + 0.5 * (1.0 - upd)
-            loss_normal = torch.sum((pred_n - gt_n) ** 2)
-            loss = loss + weights["img_normal"] * loss_normal
-            upd2 = maps["local_update_mask"]
-            pred_o = upd2 * torch.clamp(maps["local_opacity"], 1e-5, 1.0 - 1e-5)
-            if guide_flag < 0.5:  # front view only: silhouette L2
-                loss_mask = torch.sum((pred_o - upd2 * guide_mask) ** 2)
+        with span("edit.render"):
+            mt, new_cache, maps, normal_img = self._render(
+                use_global, cam_l, cam_g, sdf_cache, refresh_idx, n_active)
+        with span("edit.guidance"):
+            if cfg.use_sds:
+                sds = self.guidance(normal_img[None], cond, uncond, None,
+                                    min_t, max_t, t=draws["t"],
+                                    noise=draws["noise"],
+                                    enc_noise=draws.get("enc_noise"))
+                loss = weights["sds"] * sds["loss_sds"]
+                guide_aux = {"sds": sds["loss_sds"]}
             else:
-                loss_mask = torch.zeros((), device=self.device)
-            loss = loss + weights["img_mask"] * loss_mask
-            aux["img_normal"] = loss_normal
-            aux["img_mask"] = loss_mask
+                # du edit mode: pull the render toward the cached multi-step
+                # edit `du_gt` (refreshed in `_prepare`).
+                du = self.guidance.du_loss_terms(
+                    normal_img[None], du_gt[None],
+                    enc_noise=draws.get("enc_noise"))
+                loss = (weights["du_f"] * du["loss_f"]
+                        + weights["du_l1"] * du["loss_l1"])
+                if "loss_p" in du:
+                    loss = loss + weights["du_p"] * du["loss_p"]
+                guide_aux = {"du_f": du["loss_f"], "du_l1": du["loss_l1"]}
 
-        loss.backward()
-        self.optimizer.step()
+        with span("edit.losses"):
+            # Surface-aware recon: keep-region vertices must match the
+            # frozen field.
+            k_idx = draws["recon_idx"]
+            live = field.forward_sdf(p, geometry.grid_pos[k_idx],
+                                     level_mask=lm, n_active=n_active)
+            frozen = self.recon_sdf[k_idx]
+            keep_w = (~part.live_vert_mask[k_idx]).to(torch.float32)
+            loss_recon = torch.sum(keep_w * (live - frozen) ** 2)
+            loss = loss + weights["recon"] * loss_recon
+
+            # HumanNorm control-SDF on the edit region (snapshotted live
+            # field after warmup).
+            if weights["control"] > 0:
+                loss_ctrl = torch.sum(
+                    part.live_vert_mask[k_idx].to(torch.float32)
+                    * (live - control_sdf[k_idx]) ** 2)
+            else:
+                loss_ctrl = torch.zeros((), device=self.device)
+            loss = loss + weights["control"] * loss_ctrl
+
+            loss_nc = normal_consistency(mt)
+            loss = loss + weights["nc"] * loss_nc
+
+            pairs = maps["local_num_pairs"]
+            if use_global:
+                pairs = torch.maximum(pairs, maps["global_num_pairs"])
+            aux = {
+                **guide_aux,
+                "recon": loss_recon,
+                "control": loss_ctrl,
+                "nc": loss_nc,
+                # mesh-raster pairs (max over the views rendered this step),
+                # compared against mesh_cfg.pair_budget by the governor
+                "mesh_pairs": pairs.to(torch.float32),
+            }
+
+            if cfg.use_additional_input:
+                # Image-guided editing: MSE between the update-region
+                # normals and the front/back GT normal image, + silhouette
+                # L2 on the front mask.
+                upd = maps["local_update_mask"][..., None]
+                pred_n = upd * maps["local_comp_normal"] + 0.5 * (1.0 - upd)
+                gt_n = upd * guide_normal + 0.5 * (1.0 - upd)
+                loss_normal = torch.sum((pred_n - gt_n) ** 2)
+                loss = loss + weights["img_normal"] * loss_normal
+                upd2 = maps["local_update_mask"]
+                pred_o = upd2 * torch.clamp(maps["local_opacity"], 1e-5,
+                                            1.0 - 1e-5)
+                if guide_flag < 0.5:  # front view only: silhouette L2
+                    loss_mask = torch.sum((pred_o - upd2 * guide_mask) ** 2)
+                else:
+                    loss_mask = torch.zeros((), device=self.device)
+                loss = loss + weights["img_mask"] * loss_mask
+                aux["img_normal"] = loss_normal
+                aux["img_mask"] = loss_mask
+
+        with span("edit.backward"):
+            loss.backward()
+        with span("edit.optimizer"):
+            self.optimizer.step()
         return (loss.detach(), {k: v.detach() for k, v in aux.items()},
                 normal_img.detach(), new_cache)
 
     def train_step(self, seed: int = 0) -> Dict[str, float]:
+        """One edit step; its record (the loss and each term) as floats."""
+        with span("edit.step"):
+            with span("edit.prepare"):
+                step_i, args = self._prepare(seed)
+            loss, aux, normal_img, new_cache = self._step(*args)
+            with span("edit.record"):
+                return self._record(step_i, args[0], loss, aux, normal_img,
+                                    new_cache)
+
+    def _prepare(self, seed: int):
+        """The step's host draws, cameras, prompts, weights and uploads:
+        (step, the arguments of `_step`)."""
         cfg = self.cfg
         dev = self.device
         step_i = self.global_step
@@ -621,10 +650,16 @@ class HumanEditTrainer:
                     enc_noise=draws.get("enc_noise"),
                     edit_noise=draws.get("edit_noise"))
             du_gt = self.guidance.edited_images[bucket][0]
-        loss, aux, normal_img, new_cache = self._step(
+        return step_i, (
             use_global, draws, cam_l, cam_g, cond, uncond, weights, min_t,
             max_t, ctrl, guide_normal, guide_mask, guide_flag, sdf_cache,
             refresh_idx, n_active, du_gt)
+
+    def _record(self, step_i: int, use_global: bool, loss, aux, normal_img,
+                new_cache) -> Dict[str, float]:
+        """Carry the selection cache, read the record back (one host read),
+        govern the pair budget and write the visual checkpoint."""
+        cfg = self.cfg
         if cfg.sdf_cache_refresh > 0:
             self._sdf_cache = new_cache
         self.global_step += 1
