@@ -9,6 +9,10 @@ checkout reuses it.
 
 Every wrapper adds one to `LAUNCHES[name]` where it launches its kernel,
 and nowhere else, so a run can show that its main path went through them.
+A CUDA graph replay (`utils/cuda_graphs.py`) adds the launches the graph
+holds, taken once at its capture. `GRAPHS` counts the graphed functions
+`captured`, the graphed calls `replayed` and the calls that could have been
+graphed and ran `eager` (on CPU tensors).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ KERNEL_NAMES = (
     "hash_scatter",
 )
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+GRAPHS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -19,6 +19,7 @@ normals it returns carry no gradient of their own.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Mapping, Optional, Tuple, Union
 
 import numpy as np
@@ -92,6 +93,15 @@ def _generator(seed: Union[int, torch.Generator, None]) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         return seed
     return torch.Generator().manual_seed(0 if seed is None else int(seed))
+
+
+@functools.lru_cache(maxsize=None)
+def fd_offsets(eps: float, device: torch.device) -> Tensor:
+    """The (3, 3) f32 finite-difference steps eps·e_i on `device`, copied
+    there once per (eps, device): a host copy at every call would wait for
+    the stream each time."""
+    return torch.tensor([[eps, 0, 0], [0, eps, 0], [0, 0, eps]],
+                        dtype=torch.float32, device=device)
 
 
 @register("implicit-sdf")
@@ -179,8 +189,7 @@ class SDFField:
 
         e = self.cfg.finite_difference_normal_eps if eps is None else eps
         r = self.cfg.radius
-        offsets = torch.tensor([[e, 0, 0], [0, e, 0], [0, 0, e]],
-                               dtype=torch.float32, device=points.device)
+        offsets = fd_offsets(e, points.device)
         p_off = torch.clamp(points[:, None, :] + offsets[None], -r, r)
         all_pts = torch.cat([points, p_off.reshape(-1, 3)])
         all_sdf = self.forward_sdf(params, all_pts, level_mask)

@@ -31,7 +31,8 @@ hashed levels give the same ids as the JAX uint32 hash bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import functools
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -98,16 +99,24 @@ _OFFSETS = tuple(
 )
 
 
+@functools.lru_cache(maxsize=None)
+def corner_constants(device: torch.device) -> Tuple[Tensor, Tensor, Tensor]:
+    """The (8, 3) int64 corner offsets, the (1, 8, 3) mask of their ones
+    and their (8, 3) f32 signs ±1 on `device`, copied there once: a host
+    copy at every call would wait for the stream each time."""
+    offsets = torch.tensor(_OFFSETS, dtype=torch.int64, device=device)
+    return offsets, offsets[None] == 1, offsets.to(torch.float32) * 2.0 - 1.0
+
+
 def _level_corners(x: Tensor, res: int, table_size: int):
     """Per-level corner data: idx (N,8), per-axis weight factors
     wx/wy/wz (N,8)."""
-    offsets = torch.tensor(_OFFSETS, dtype=torch.int64, device=x.device)
+    offsets, one, _ = corner_constants(x.device)
     xs = x * res
     x0 = torch.clamp(torch.floor(xs).to(torch.int64), 0, res - 1)
     w = xs - x0.to(torch.float32)  # (N, 3)
     corners = x0[:, None, :] + offsets[None, :, :]
     idx = _hash_corner(corners, res, table_size)
-    one = offsets[None] == 1  # (1, 8, 3)
     wx = torch.where(one[..., 0], w[:, None, 0], 1 - w[:, None, 0])
     wy = torch.where(one[..., 1], w[:, None, 1], 1 - w[:, None, 1])
     wz = torch.where(one[..., 2], w[:, None, 2], 1 - w[:, None, 2])
@@ -176,8 +185,7 @@ class _HashGridEncode(torch.autograd.Function):
         g3 = g.reshape(n, cfg.n_levels, cfg.n_features_per_level)[:, :la]
         g3 = g3 * level_mask[None, :la, None]
 
-        sgn = torch.tensor(_OFFSETS, dtype=torch.float32,
-                           device=x.device) * 2.0 - 1.0  # (8, 3) ±1
+        sgn = corner_constants(x.device)[2]  # (8, 3) ±1
         want_dx = ctx.needs_input_grad[1]
         dx = torch.zeros_like(x) if want_dx else None
         idx_all, v_all = [], []

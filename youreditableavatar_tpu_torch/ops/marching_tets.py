@@ -18,6 +18,7 @@ Index outputs are int32, as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -59,8 +60,13 @@ TRIANGLE_TABLE = np.array(
 _INT32_MAX = 2**31 - 1
 
 
-def _table(a: np.ndarray, device) -> Tensor:
-    return torch.as_tensor(a.astype(np.int64), device=device)
+@functools.lru_cache(maxsize=None)
+def _tables(device: torch.device) -> Tuple[Tensor, Tensor, Tensor]:
+    """TET_EDGES, TRIANGLE_TABLE and NUM_TRIANGLES_TABLE as int64 on
+    `device`, copied there once: a host copy at every call would wait for
+    the stream each time."""
+    return tuple(torch.as_tensor(a.astype(np.int64), device=device)
+                 for a in (TET_EDGES, TRIANGLE_TABLE, NUM_TRIANGLES_TABLE))
 
 
 def build_tet_grid(
@@ -163,9 +169,8 @@ def unique_edge_slots(
     """
     shape = lo.shape
     dev = lo.device
-    big = torch.tensor(_INT32_MAX, dtype=torch.int64, device=dev)
-    lo_f = torch.where(valid, lo.to(torch.int64), big).reshape(-1)
-    hi_f = torch.where(valid, hi.to(torch.int64), big).reshape(-1)
+    lo_f = torch.where(valid, lo.to(torch.int64), _INT32_MAX).reshape(-1)
+    hi_f = torch.where(valid, hi.to(torch.int64), _INT32_MAX).reshape(-1)
     n = lo_f.shape[0]
     key_s, pos_s = torch.sort((lo_f << 32) | hi_f, stable=True)
     lo_s = key_s >> 32
@@ -238,7 +243,7 @@ def marching_tets(
     if tet_valid is not None:
         surf = surf & tet_valid
 
-    edges = _table(TET_EDGES, dev)
+    edges, tri_table, ntri_table = _tables(dev)
     ev0 = tets[:, edges[:, 0]]  # (Nt, 6)
     ev1 = tets[:, edges[:, 1]]
     cut = (occ[ev0] != occ[ev1]) & surf[:, None]
@@ -265,10 +270,10 @@ def marching_tets(
              + gather_rows(pos, vb_l) * (1.0 - t[:, None]))
     verts = torch.where(verts_valid[:, None], verts, torch.zeros_like(verts))
 
-    local = _table(TRIANGLE_TABLE, dev)[code]  # (Nt, 6) local edge ids (−1 pad)
+    local = tri_table[code]  # (Nt, 6) local edge ids (−1 pad)
     global_vid = torch.gather(edge_slot.long(), 1, torch.clamp(local, min=0))
 
-    ntri = torch.where(surf, _table(NUM_TRIANGLES_TABLE, dev)[code],
+    ntri = torch.where(surf, ntri_table[code],
                        torch.zeros_like(code))  # (Nt,) 0..2
     num_faces = ntri.sum().to(torch.int32)
 
@@ -406,7 +411,7 @@ def subdivide_tets(
     dev = pos.device
     nv = pos.shape[0]
     tets = tets.long()
-    edges = _table(TET_EDGES, dev)
+    edges = _tables(dev)[0]
     ev0 = tets[:, edges[:, 0]]  # (M, 6)
     ev1 = tets[:, edges[:, 1]]
     lo = torch.minimum(ev0, ev1)
@@ -445,7 +450,7 @@ def subdivide_tets(
         dim=1,
     )  # (M, 8, 4)
     child_tets = children.reshape(-1, 4).to(torch.int32)
-    child_valid = torch.repeat_interleave(tet_valid, 8)
+    child_valid = tet_valid[:, None].expand(-1, 8).reshape(-1)
     return new_pos, new_sdf, child_tets, child_valid, num_mid
 
 

@@ -103,8 +103,9 @@ def interpolate_attributes(
     a0, a1, a2 = (corner(attrs, i) for i in range(3))
     img = a0 * bary[..., 0:1] + a1 * bary[..., 1:2] + a2 * bary[..., 2:3]
     mask = (out.face_id >= 0)[..., None]
-    bg = torch.as_tensor(background, dtype=img.dtype, device=img.device)
-    return torch.where(mask, img, bg)
+    if not torch.is_tensor(background):  # a scalar operand, not a host copy
+        return torch.where(mask, img, float(background))
+    return torch.where(mask, img, background.to(img.device, img.dtype))
 
 
 def silhouette_alpha(

@@ -26,6 +26,7 @@ the budget means faces may have been dropped.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -194,8 +195,13 @@ def face_box_plain(rows: Tensor) -> Tensor:
     my = 4.0 * e * sy + 1e-6 * (yl.abs() + yh.abs()) + 1e-6
     box = torch.stack([xl - mx, xh + mx, yl - my, yh + my], dim=1).float()
     cull = (ad > 0.0) & (sx + sy < 1e30) & (ed < 0.5)
-    inf = torch.tensor([-float("inf"), float("inf")] * 2, device=rows.device)
-    return torch.where(cull[:, None], box, inf)
+    return torch.where(cull[:, None], box, _no_cull(rows.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _no_cull(device: torch.device) -> Tensor:
+    """The box (−inf, inf, −inf, inf) on `device`, copied there once."""
+    return torch.tensor([-float("inf"), float("inf")] * 2, device=device)
 
 
 def resolve_tiles_plain(

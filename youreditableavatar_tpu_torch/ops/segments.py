@@ -28,8 +28,9 @@ def range_owner(counts: Tensor, budget: int) -> Tuple[Tensor, Tensor, Tensor]:
     total = cum[-1] if n else torch.zeros((), dtype=torch.int64, device=dev)
     slots = torch.arange(budget, dtype=torch.int64, device=dev)
     valid = slots < total
-    nz = torch.nonzero(counts > 0).flatten()
-    last = nz[-1] if nz.numel() else torch.zeros((), dtype=torch.int64, device=dev)
+    # The last producer with items (0 if none), without a host read.
+    last = (torch.where(counts > 0, torch.arange(n, device=dev), 0).max() if n
+            else torch.zeros((), dtype=torch.int64, device=dev))
     owner = torch.searchsorted(cum, slots, right=True)
     owner = torch.where(valid, owner, last)
     local = slots - offsets[owner] if n else slots

@@ -16,8 +16,14 @@ Counterpart of `youreditableavatar_tpu/stages/spatial.py`:
     multi-step-denoised edit of the current render, one cache entry per
     azimuth bucket, refreshed every `per_editing_step` steps.
 
-Each step runs eagerly on the device of the geometry (the hash-grid
-backward is K4, every normal map's z-buffer resolve K5).
+Each step runs on the device of the geometry (the hash-grid backward is
+K4, every normal map's z-buffer resolve K5). On a CUDA device the step's
+geometry — the surface and its normal maps (`edit.render`), and the recon,
+control and normal-consistency terms (`edit.losses`) — runs as CUDA graph
+replays, forward and backward (`utils/cuda_graphs.GraphedChain`), of the
+same functions that run eagerly elsewhere; a graph is captured for each
+`graph_key` the first time a step needs it. The guidance, the per-step
+weights and the sum into the loss stay eager.
 
 Randomness has one seam per trainer. Every draw the JAX code makes from a
 PRNG key comes from one method that returns it as a tensor:
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from youreditableavatar_tpu_torch import _kernels
 from youreditableavatar_tpu_torch.data.camera_sampler import (
     RandomCameraConfig,
     RandomCameraSampler,
@@ -60,8 +67,12 @@ from youreditableavatar_tpu_torch.models.part_renderer import (
 )
 from youreditableavatar_tpu_torch.models.sdf import SDFField, SDFParams
 from youreditableavatar_tpu_torch.native import MeshSDF
-from youreditableavatar_tpu_torch.ops.gaussian_raster import BudgetGovernor
+from youreditableavatar_tpu_torch.ops.gaussian_raster import (
+    BudgetGovernor,
+    RasterCamera,
+)
 from youreditableavatar_tpu_torch.ops.mesh_raster import MeshRasterConfig
+from youreditableavatar_tpu_torch.utils.cuda_graphs import GraphedChain
 from youreditableavatar_tpu_torch.utils.device import resolve_device
 from youreditableavatar_tpu_torch.utils.optim import parse_optimizer
 from youreditableavatar_tpu_torch.utils.profiling import span
@@ -368,6 +379,10 @@ class HumanEditTrainer:
         # Optional image-guided editing targets (H, W, ...) in [0, 1]:
         # dict(front_normal, back_normal, front_mask).
         self.input_images: Optional[Dict[str, np.ndarray]] = None
+        # The geometry's CUDA graphs of one key less its use_global (below),
+        # one chain per use_global.
+        self._graph_base: Optional[tuple] = None
+        self._graphs: Dict[bool, GraphedChain] = {}
 
         grid_pos = geometry.grid_pos
         with torch.no_grad():
@@ -410,45 +425,137 @@ class HumanEditTrainer:
             out["edit_noise"] = torch.randn(shape, generator=g).to(self.device)
         return out
 
-    def _render(self, use_global, cam_l, cam_g, sdf_cache, refresh_idx,
-                n_active):
-        """The edit surface at the live params and its normal maps:
-        (mt, new selection cache, maps, the guided normal image)."""
+    # ---- the step's geometry, graphed on a CUDA device --------------------
+
+    def graph_key(self, use_global: bool, n_active: int) -> tuple:
+        """What the geometry's graphs hold beyond their tensor inputs; the
+        last entry is `use_global`. A change of any other (the governor
+        growing `mesh_cfg.pair_budget`, the curriculum's `n_active`) makes
+        the next step capture anew."""
+        cam = self.cfg.camera
+        return (self.device, n_active, self.geometry.budgets, self.mesh_cfg,
+                self.cfg.sdf_cache_refresh > 0, self.cfg.use_additional_input,
+                (cam.height, cam.width),
+                tuple(x.data_ptr() for x in self.params.parameters()),
+                bool(use_global))
+
+    def _render_inputs(self, use_global, cam_l, cam_g, sdf_cache,
+                       refresh_idx) -> tuple:
+        """The tensors `_render_fn` takes: the selection cache and its
+        refresh slice (where the cache is on), then the local camera's and
+        (with use_global) the global camera's viewmat, fx, fy, cx, cy."""
+        cache = ((sdf_cache, refresh_idx) if self.cfg.sdf_cache_refresh > 0
+                 else ())
+        return cache + tuple(cam_l[:5]) + (tuple(cam_g[:5]) if use_global
+                                           else ())
+
+    def _render_fn(self, use_global: bool, n_active: int):
+        """The edit surface at the live params and its normal maps, as a
+        function of `_render_inputs`' tensors → (mt, the new selection
+        cache as a 1-tuple (empty without the cache), the maps the step
+        reads, the guided normal image)."""
         field = self.field
         part = self.partition
-        # Progressive hash-grid band; n_active skips the masked levels.
-        lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
-              < n_active).to(torch.float32)
-        if self.cfg.sdf_cache_refresh > 0:
-            mt, new_cache = self.geometry.part_isosurface_cached(
-                self.params, part, sdf_cache, refresh_idx, level_mask=lm,
-                n_active=n_active)
-        else:
-            mt = self.geometry.part_isosurface(self.params, part,
-                                               level_mask=lm,
-                                               n_active=n_active)
-            new_cache = sdf_cache
-        maps = render_part_maps(part.keep_mesh, mt, cam_l,
-                                cam_g if use_global else None, self.mesh_cfg)
-        normal_img = (maps["global_comp_normal"] if use_global
-                      else maps["local_comp_normal"])
-        return mt, new_cache, maps, normal_img
+        cached = self.cfg.sdf_cache_refresh > 0
+        w, h = self.cfg.camera.width, self.cfg.camera.height
+        read = ["local_num_pairs"] + (["global_num_pairs"] if use_global
+                                      else [])
+        if self.cfg.use_additional_input:
+            read += ["local_update_mask", "local_comp_normal",
+                     "local_opacity"]
+
+        def render(*t):
+            cams = t[2:] if cached else t
+            # Progressive hash-grid band; n_active skips the masked levels.
+            lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
+                  < n_active).to(torch.float32)
+            if cached:
+                mt, new_cache = self.geometry.part_isosurface_cached(
+                    self.params, part, t[0], t[1], level_mask=lm,
+                    n_active=n_active)
+            else:
+                mt = self.geometry.part_isosurface(self.params, part,
+                                                   level_mask=lm,
+                                                   n_active=n_active)
+            cam_g = RasterCamera(*cams[5:], w, h) if use_global else None
+            maps = render_part_maps(part.keep_mesh, mt,
+                                    RasterCamera(*cams[:5], w, h), cam_g,
+                                    self.mesh_cfg)
+            normal_img = maps["global_comp_normal" if use_global
+                              else "local_comp_normal"]
+            return (mt, (new_cache,) if cached else (),
+                    {k: maps[k] for k in read}, normal_img)
+        return render
+
+    def _losses_fn(self, n_active: int):
+        """(mt, recon indices, control SDF) → the unweighted recon, control
+        and normal-consistency terms."""
+        field = self.field
+        part = self.partition
+
+        def losses(mt, k_idx, control_sdf):
+            lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
+                  < n_active).to(torch.float32)
+            # Surface-aware recon: keep-region vertices must match the
+            # frozen field.
+            live = field.forward_sdf(self.params, self.geometry.grid_pos[k_idx],
+                                     level_mask=lm, n_active=n_active)
+            frozen = self.recon_sdf[k_idx]
+            keep_w = (~part.live_vert_mask[k_idx]).to(torch.float32)
+            loss_recon = torch.sum(keep_w * (live - frozen) ** 2)
+            # HumanNorm control-SDF on the edit region (snapshotted live
+            # field after warmup).
+            loss_ctrl = torch.sum(
+                part.live_vert_mask[k_idx].to(torch.float32)
+                * (live - control_sdf[k_idx]) ** 2)
+            return loss_recon, loss_ctrl, normal_consistency(mt)
+        return losses
+
+    def _geometry_chain(self, use_global, n_active, cam_l, cam_g, sdf_cache,
+                        refresh_idx, losses_in) -> Optional[GraphedChain]:
+        """The graphs of this step's geometry on a CUDA device, None
+        elsewhere. A key seen for the first time is captured here, with
+        the other use_global of the same key, from this step's inputs, and
+        the graphs of other keys are dropped."""
+        if self.device.type != "cuda":
+            return None
+        key = self.graph_key(use_global, n_active)
+        if key[:-1] != self._graph_base:
+            self._graph_base, self._graphs = key[:-1], {}
+        if use_global not in self._graphs:
+            leaves = list(self.params.parameters())
+            for ug in (use_global, not use_global):
+                self._graphs[ug] = GraphedChain(
+                    (self._render_fn(ug, n_active), self._losses_fn(n_active)),
+                    (self._render_inputs(ug, cam_l, cam_g, sdf_cache,
+                                         refresh_idx),
+                     lambda out: (out[0],) + losses_in), leaves)
+        return self._graphs[use_global]
+
+    @staticmethod
+    def _geometry_call(chain, i, fn, *args):
+        """Function i of the geometry: replayed from `chain`, else run."""
+        if chain is None:
+            _kernels.GRAPHS["eager"] += 1
+            return fn(*args)
+        with span("edit.graph"):
+            return chain(i, *args)
 
     def _step(self, use_global, draws, cam_l, cam_g, cond, uncond, weights,
               min_t, max_t, control_sdf, guide_normal, guide_mask, guide_flag,
               sdf_cache, refresh_idx, n_active, du_gt=None):
         cfg = self.cfg
-        geometry = self.geometry
-        field = self.field
-        part = self.partition
-        p = self.params
-        lm = (torch.arange(field.cfg.grid.n_levels, device=self.device)
-              < n_active).to(torch.float32)
+        losses_in = (draws["recon_idx"], control_sdf)
 
         self.optimizer.zero_grad(set_to_none=True)
         with span("edit.render"):
-            mt, new_cache, maps, normal_img = self._render(
-                use_global, cam_l, cam_g, sdf_cache, refresh_idx, n_active)
+            chain = self._geometry_chain(use_global, n_active, cam_l, cam_g,
+                                         sdf_cache, refresh_idx, losses_in)
+            mt, cache, maps, normal_img = self._geometry_call(
+                chain, 0, self._render_fn(use_global, n_active),
+                *self._render_inputs(use_global, cam_l, cam_g, sdf_cache,
+                                     refresh_idx))
+            new_cache = cache[0] if cache else sdf_cache
         with span("edit.guidance"):
             if cfg.use_sds:
                 sds = self.guidance(normal_img[None], cond, uncond, None,
@@ -470,27 +577,14 @@ class HumanEditTrainer:
                 guide_aux = {"du_f": du["loss_f"], "du_l1": du["loss_l1"]}
 
         with span("edit.losses"):
-            # Surface-aware recon: keep-region vertices must match the
-            # frozen field.
-            k_idx = draws["recon_idx"]
-            live = field.forward_sdf(p, geometry.grid_pos[k_idx],
-                                     level_mask=lm, n_active=n_active)
-            frozen = self.recon_sdf[k_idx]
-            keep_w = (~part.live_vert_mask[k_idx]).to(torch.float32)
-            loss_recon = torch.sum(keep_w * (live - frozen) ** 2)
+            loss_recon, loss_ctrl, loss_nc = self._geometry_call(
+                chain, 1, self._losses_fn(n_active), mt, *losses_in)
             loss = loss + weights["recon"] * loss_recon
-
-            # HumanNorm control-SDF on the edit region (snapshotted live
-            # field after warmup).
-            if weights["control"] > 0:
-                loss_ctrl = torch.sum(
-                    part.live_vert_mask[k_idx].to(torch.float32)
-                    * (live - control_sdf[k_idx]) ** 2)
-            else:
+            # The control term counts once its weight is on (the graph
+            # computes it whatever the weight).
+            if not weights["control"] > 0:
                 loss_ctrl = torch.zeros((), device=self.device)
             loss = loss + weights["control"] * loss_ctrl
-
-            loss_nc = normal_consistency(mt)
             loss = loss + weights["nc"] * loss_nc
 
             pairs = maps["local_num_pairs"]
@@ -642,8 +736,9 @@ class HumanEditTrainer:
                     or step_i % per_edit == 0):
                 with torch.no_grad():
                     # The training step recomputes and carries the cache.
-                    cur = self._render(use_global, cam_l, cam_g, sdf_cache,
-                                       refresh_idx, n_active)[3]
+                    cur = self._render_fn(use_global, n_active)(
+                        *self._render_inputs(use_global, cam_l, cam_g,
+                                             sdf_cache, refresh_idx))[3]
                 self.guidance.maybe_refresh(
                     cur[None], cond, uncond, None, min_t, max_t, bucket,
                     step_i, t=draws["du_t"],
@@ -657,11 +752,13 @@ class HumanEditTrainer:
 
     def _record(self, step_i: int, use_global: bool, loss, aux, normal_img,
                 new_cache) -> Dict[str, float]:
-        """Carry the selection cache, read the record back (one host read),
-        govern the pair budget and write the visual checkpoint."""
+        """Carry the selection cache (into the trainer's own buffer: a
+        graph's output is overwritten by its next replay), read the record
+        back (one host read), govern the pair budget and write the visual
+        checkpoint."""
         cfg = self.cfg
         if cfg.sdf_cache_refresh > 0:
-            self._sdf_cache = new_cache
+            self._sdf_cache.copy_(new_cache)
         self.global_step += 1
         # One host read for the whole record.
         names = list(aux)
