@@ -2944,7 +2944,7 @@ def phase_segment(dev, kernels):
         images.append(im)
     box0 = grounder.ground(images[0], "the hat")
     seg_ms = host_ms(lambda: seg.segment(images[0], "the hat"))
-    mask0 = seg.segment(images[0], "the hat")
+    mask0 = seg.segment(images[0], "the hat").cpu().numpy()
     # The untrained decoder's mask is the grounded box ∩ the foreground.
     x0, y0, x1, y1 = box0.astype(int)
     expect = np.zeros((HEIGHT, WIDTH), bool)

@@ -327,7 +327,7 @@ def test_sam_segmenter_with_dino_grounder_matches_jax(params):
     np.testing.assert_allclose(tseg.grounder.ground(img, "the hat"),
                                jseg.grounder.ground(img, "the hat"),
                                atol=BOX_PX_TOL * 64)
-    mask = tseg.segment(img, "the hat")
+    mask = tseg.segment(img, "the hat").numpy()
     assert mask.dtype == bool and mask.any()
     np.testing.assert_array_equal(mask, jseg.segment(img, "the hat"))
 

@@ -290,7 +290,8 @@ def test_face_region_functions_match_jax():
     np.testing.assert_array_equal(tm.face_adjacency(faces),
                                   jm.face_adjacency(faces))
     for fn in ("dilate_face_region", "erode_face_region"):
-        np.testing.assert_array_equal(getattr(tm, fn)(faces, fmask, 2),
+        got = getattr(tm, fn)(faces, torch.as_tensor(fmask), 2)
+        np.testing.assert_array_equal(got.numpy(),
                                       getattr(jm, fn)(faces, fmask, 2))
     np.testing.assert_array_equal(
         tm.vertex_mask_from_faces(faces, fmask, len(verts)),

@@ -204,7 +204,7 @@ def test_segmenter_matches_jax(params, frame, trust):
     got_logits = _np(tseg._mask_logits(img, box))
     np.testing.assert_allclose(got_logits, ref_logits, **DEC_TOL)
     mj = jseg.segment(img, "the hat")
-    mt = tseg.segment(img, "the hat")
+    mt = tseg.segment(img, "the hat").numpy()
     assert mt.shape == mj.shape == img.shape[:2] and mt.dtype == bool
     if trust:
         near = np.abs(ref_logits) <= DEC_TOL["atol"] + DEC_TOL["rtol"] * \
@@ -287,5 +287,5 @@ def test_segmenter_on_card_matches_cpu(params, cuda_device, trust):
     np.testing.assert_allclose(_np(card._mask_logits(img, box)),
                                _np(cpu._mask_logits(img, box)), **DEC_TOL)
     if not trust:
-        np.testing.assert_array_equal(card.segment(img, "the hat"),
+        np.testing.assert_array_equal(card.segment(img, "the hat").cpu(),
                                       cpu.segment(img, "the hat"))

@@ -7,8 +7,9 @@ the stage-2 appearance fit over COLMAP-posed frames + region localization.
 --segmenter picks the localization's segmenter (`guidance.factory.
 make_segmenter_backend`): "heuristic", "sam" (with --sam-weights, and
 --dino-weights / --dino-vocab for GroundingDINO's text-grounded boxes),
-"sam-random" or "langsam-random". The stage runs on the CUDA card unless
---device names another device.
+"sam-random", "langsam-random" or "langsam-vit-h-random" (SAM ViT-H and
+GroundingDINO Swin-T at published widths on random weights). The stage
+runs on the CUDA card unless --device names another device.
 """
 
 import argparse
@@ -26,7 +27,7 @@ def main(argv=None):
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--segmenter", default="heuristic",
                    choices=["heuristic", "sam", "sam-random",
-                            "langsam-random"])
+                            "langsam-random", "langsam-vit-h-random"])
     p.add_argument("--sam-weights", default=None,
                    help="official sam_vit_*.pth checkpoint")
     p.add_argument("--dino-weights", default=None,

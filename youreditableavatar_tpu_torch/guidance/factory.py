@@ -195,6 +195,10 @@ def make_segmenter_backend(
                          the mask falls back to the grounded box).
       "langsam-random" — random-weight SAM + GroundingDINO chained: the
                          whole LangSAM path, weight-free.
+      "langsam-vit-h-random" — LangSAM as "sam" with `dino_weights` runs
+                         it (SAM ViT-H, GroundingDINO Swin-T at 800², box
+                         threshold 0.35, the decoder's mask), on random
+                         weights drawn from `seed` on `device`.
     """
     if name == "heuristic":
         from youreditableavatar_tpu_torch.stages.localization import (
@@ -220,6 +224,20 @@ def make_segmenter_backend(
             device=device,
         )
 
+    if name == "langsam-vit-h-random":
+        from youreditableavatar_tpu_torch.guidance.grounding_dino import (
+            SWIN_T_GDINO, init_gdino_params)
+        from youreditableavatar_tpu_torch.guidance.sam import (
+            SAM_VIT_H, SAMSegmenter, init_sam_params)
+
+        gen = _generator(seed, device)
+        sam_params = init_sam_params(gen, SAM_VIT_H)
+        grounder = _dino_grounder(init_gdino_params(gen, SWIN_T_GDINO),
+                                  SWIN_T_GDINO, None, device)
+        return SAMSegmenter(sam_params, SAM_VIT_H, grounder=grounder,
+                            trust_decoder=True, multimask=False,
+                            device=device)
+
     if name == "sam":
         from youreditableavatar_tpu_torch.guidance.sam import (
             SAM_VIT_B,
@@ -243,7 +261,6 @@ def make_segmenter_backend(
         if dino_weights:
             from youreditableavatar_tpu_torch.guidance.grounding_dino import (
                 SWIN_T_GDINO,
-                DinoGrounder,
                 convert_torch_gdino,
             )
 
@@ -271,12 +288,19 @@ def make_segmenter_backend(
                     f"{vocab!r}); falling back to the hash tokenizer — "
                     f"grounding quality will be poor with real weights"
                 )
-            grounder = DinoGrounder(
-                convert_torch_gdino(sd, SWIN_T_GDINO), SWIN_T_GDINO,
-                tokenizer=tokenizer, box_threshold=0.35, image_size=800,
-                device=device,
-            )
+            grounder = _dino_grounder(convert_torch_gdino(sd, SWIN_T_GDINO),
+                                      SWIN_T_GDINO, tokenizer, device)
         return SAMSegmenter.from_torch_file(weights_path, cfg,
                                             grounder=grounder, device=device)
 
     raise ValueError(f"unknown segmenter backend {name!r}")
+
+
+def _dino_grounder(params, cfg, tokenizer, device):
+    """GroundingDINO as LangSAM grounds: the image resized to 800², the
+    best box kept at a score of 0.35 or more."""
+    from youreditableavatar_tpu_torch.guidance.grounding_dino import (
+        DinoGrounder)
+
+    return DinoGrounder(params, cfg, tokenizer=tokenizer, box_threshold=0.35,
+                        image_size=800, device=device)

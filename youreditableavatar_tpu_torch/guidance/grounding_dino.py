@@ -23,6 +23,11 @@ sampling as the JAX package's gathers. The parameter trees are the JAX
 package's layout (NHWC, HWIO, (in, out) linears, LayerNorms as {"g", "b"}),
 carried across with `gdino_params_from_numpy`. Nothing differentiates
 GroundingDINO: `DinoGrounder` runs under `torch.no_grad()`.
+
+Spans (`utils/profiling.span`): `gdino` over `gdino_ground`, one
+`gdino.msda` inside it for each `ms_deform_attn` call. Counters:
+`gdino.msda_calls`, `gdino.msda_tokens.l<level>` (the value tokens each
+call samples on each level), and the grounder's host ↔ device bytes.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     tree_to,
 )
 from youreditableavatar_tpu_torch.utils.device import resolve_device
+from youreditableavatar_tpu_torch.utils.profiling import (
+    count, span, to_device, to_host)
 
 Params = Dict[str, Any]
 
@@ -191,6 +198,30 @@ def _rel_index(window: int) -> np.ndarray:
     return rel[..., 0] * (2 * window - 1) + rel[..., 1]
 
 
+# The forward's small constants, uploaded to a device once: an upload
+# waits for the stream, and the launches behind it cannot queue meanwhile.
+@functools.lru_cache(maxsize=32)
+def _rel_index_on(window: int, device: torch.device) -> Tensor:
+    return torch.as_tensor(_rel_index(window), device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _shift_mask(h: int, wd: int, window: int, shift: int, dtype,
+                device: torch.device) -> Tensor:
+    """(nW, W², W²) additive mask of attention across wrapped-window
+    boundaries."""
+    mw = torch.as_tensor(_shift_regions(h, wd, window, shift), device=device)
+    return torch.where(mw[:, None, :] != mw[:, :, None],
+                       torch.tensor(NEG, dtype=dtype, device=device),
+                       torch.tensor(0.0, dtype=dtype, device=device))
+
+
+@functools.lru_cache(maxsize=32)
+def _values_on(values: Tuple[float, ...], dtype,
+               device: torch.device) -> Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def _window_partition(x, w):
     h, wd, c = x.shape
     x = x.reshape(h // w, w, wd // w, w, c).permute(0, 2, 1, 3, 4)
@@ -226,16 +257,11 @@ def _swin_block(x, p, heads, window, shift):
     if shift:
         x = torch.roll(x, (-shift, -shift), dims=(0, 1))
     wins = _window_partition(x, window)  # (nW, W², C)
-    idx = torch.as_tensor(_rel_index(window), device=x.device)
-    bias = p["rel_bias"][idx]  # (W², W², heads)
+    bias = p["rel_bias"][_rel_index_on(window, x.device)]  # (W², W², heads)
     bias = bias.permute(2, 0, 1)[None]  # (1, heads, W², W²)
     if shift:
         # Mask attention across wrapped-window boundaries.
-        mw = torch.as_tensor(_shift_regions(h, wd, window, shift),
-                             device=x.device)
-        amask = torch.where(mw[:, None, :] != mw[:, :, None],
-                            torch.tensor(NEG, dtype=x.dtype, device=x.device),
-                            torch.tensor(0.0, dtype=x.dtype, device=x.device))
+        amask = _shift_mask(h, wd, window, shift, x.dtype, x.device)
         mask = bias + amask[:, None]
     else:
         mask = bias
@@ -286,10 +312,8 @@ def _pad_to(x, mult):
 
 def swin_backbone(p: Params, image: Tensor, cfg: GDINOConfig) -> List[Tensor]:
     """(H, W, 3) in [0, 1] → [(H/8, W/8, 2d), (H/16, ·, 4d), (H/32, ·, 8d)]."""
-    mean = torch.tensor([0.485, 0.456, 0.406], dtype=image.dtype,
-                        device=image.device)
-    std = torch.tensor([0.229, 0.224, 0.225], dtype=image.dtype,
-                       device=image.device)
+    mean = _values_on((0.485, 0.456, 0.406), image.dtype, image.device)
+    std = _values_on((0.229, 0.224, 0.225), image.dtype, image.device)
     x = (image - mean) / std
     x = _pad_to(x, cfg.patch)
     x = conv2d(x[None], p["patch_proj"], stride=cfg.patch,
@@ -410,6 +434,15 @@ def ms_deform_attn(
 ) -> Tensor:
     """Official MSDeformAttn sampling rules: 2-dim references offset by
     off / (W_l, H_l); 4-dim (box) references by off / n_points · wh / 2."""
+    count("gdino.msda_calls")
+    for li, (hl, wl) in enumerate(shapes):
+        count(f"gdino.msda_tokens.l{li}", hl * wl)
+    with span("gdino.msda"):
+        return _ms_deform_attn(query, ref_xy, value_flat, shapes, p, h, pt,
+                               ref_wh)
+
+
+def _ms_deform_attn(query, ref_xy, value_flat, shapes, p, h, pt, ref_wh):
     lv = len(shapes)
     q, d = query.shape
     dh = d // h
@@ -425,8 +458,8 @@ def ms_deform_attn(
         lvl = val[start:start + n].reshape(hl, wl, h, dh)
         start += n
         if ref_wh is None:
-            wh = torch.tensor([wl, hl], dtype=query.dtype,
-                              device=query.device)
+            wh = _values_on((float(wl), float(hl)), query.dtype,
+                            query.device)
             xy = ref_xy[:, None, None, :] + off[:, :, li] / wh
         else:
             xy = (ref_xy[:, None, None, :]
@@ -601,8 +634,14 @@ def gdino_ground(
     token_mask: Tensor,
     cfg: GDINOConfig = TEST_GDINO,
 ) -> Dict[str, Tensor]:
-    """Image + tokenized phrase → (num_queries, 4) cxcywh boxes in [0, 1] +
-    per-query largest text logit (sigmoid score)."""
+    """Image + tokenized phrase → (num_queries, 4) cxcywh boxes in [0, 1],
+    per-query largest text logit (sigmoid score), the logits over the
+    text tokens, and the selected encoder tokens (`top`, best first)."""
+    with span("gdino"):
+        return _ground(params, image, tokens, token_mask, cfg)
+
+
+def _ground(params, image, tokens, token_mask, cfg):
     feats = swin_backbone(params["swin"], image, cfg)
     dt, dev = image.dtype, image.device
     levels = [_apply_ln(_apply_linear(f, proj["lin"]), proj["norm"])
@@ -705,6 +744,7 @@ def gdino_ground(
         "boxes": out_boxes,  # (K, 4) cxcywh in [0, 1]
         "scores": torch.sigmoid(out_logits.max(dim=-1).values),  # (K,)
         "logits": out_logits,
+        "top": top,
     }
 
 
@@ -740,7 +780,12 @@ class HashTokenizer:
 
 
 class DinoGrounder:
-    """`Grounder` seam backed by GroundingDINO (text → best box, xyxy px)."""
+    """`Grounder` seam backed by GroundingDINO (text → best box, xyxy px).
+
+    `taps`, when a list, receives one dict per call: `gdino_ground`'s
+    outputs as computed (`boxes`, `scores`, `logits`, `top`) and the box
+    returned (`box`) — the seam through which a caller reads what a call
+    did."""
 
     def __init__(self, params: Params, cfg: GDINOConfig = TEST_GDINO,
                  tokenizer=None, box_threshold: float = 0.0,
@@ -752,6 +797,7 @@ class DinoGrounder:
                                                     cfg.max_text_len)
         self.box_threshold = box_threshold
         self.image_size = image_size
+        self.taps = None
 
     @classmethod
     def random_init(cls, gen: torch.Generator, cfg: GDINOConfig = TEST_GDINO,
@@ -775,7 +821,9 @@ class DinoGrounder:
         mask[:n] = True
         return tok, mask
 
-    def ground(self, image: np.ndarray, prompt: str) -> np.ndarray:
+    def ground(self, image, prompt: str) -> np.ndarray:
+        """(H, W, 3) image in [0, 1], an array or a tensor → xyxy pixel
+        box."""
         from youreditableavatar_tpu_torch.stages.edit_texture import (
             _resize_bilinear)
 
@@ -784,23 +832,25 @@ class DinoGrounder:
         dev = self.device
         tok, mask = self._tokenize(prompt)
         with torch.no_grad():
-            img = _resize_bilinear(
-                torch.tensor(np.asarray(image, np.float32), device=dev), s, s)
+            img = _resize_bilinear(to_device(image, dev, torch.float32), s, s)
             out = gdino_ground(self.params, img,
-                               torch.tensor(np.asarray(tok), device=dev),
-                               torch.tensor(np.asarray(mask), device=dev),
-                               self.cfg)
-        scores = out["scores"].cpu().numpy()
+                               to_device(np.asarray(tok), dev),
+                               to_device(np.asarray(mask), dev), self.cfg)
+        scores = to_host(out["scores"])
         best = int(scores.argmax())
         if scores[best] < self.box_threshold:
-            return np.asarray([0.0, 0.0, float(w), float(h)], np.float32)
-        cx, cy, bw, bh = out["boxes"][best].cpu().numpy()
-        box = np.asarray(
-            [(cx - bw / 2) * w, (cy - bh / 2) * h,
-             (cx + bw / 2) * w, (cy + bh / 2) * h],
-            np.float32,
-        )
-        return np.clip(box, 0.0, [w, h, w, h]).astype(np.float32)
+            box = np.asarray([0.0, 0.0, float(w), float(h)], np.float32)
+        else:
+            cx, cy, bw, bh = to_host(out["boxes"][best])
+            box = np.asarray(
+                [(cx - bw / 2) * w, (cy - bh / 2) * h,
+                 (cx + bw / 2) * w, (cy + bh / 2) * h],
+                np.float32,
+            )
+            box = np.clip(box, 0.0, [w, h, w, h]).astype(np.float32)
+        if self.taps is not None:
+            self.taps.append({**out, "box": box})
+        return box
 
 
 def convert_torch_gdino(sd: Dict[str, Any],

@@ -24,6 +24,11 @@ The weights never require a gradient and the segmenter runs under
 
 Text grounding sits behind the `Grounder` seam (the weight-free foreground
 band here; `grounding_dino.DinoGrounder` for real grounding).
+
+Spans (`utils/profiling.span`): `sam.encode` over the image encoder, one
+`sam.global` inside it for each global-attention block, `sam.decode` over
+the mask decoder. Counters: `sam.global_blocks`, `sam.window_blocks`, and
+the segmenter's host ↔ device bytes.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     tree_to,
 )
 from youreditableavatar_tpu_torch.utils.device import resolve_device
+from youreditableavatar_tpu_torch.utils.profiling import (
+    count, span, to_device, to_host)
 
 
 def layer_norm(x: Tensor, p: Params) -> Tensor:
@@ -237,40 +244,52 @@ def _window_attention(x: Tensor, p: Params, heads: int) -> Tensor:
     return linear(o, p["proj"]).reshape(b, h, w, d)
 
 
+def _vit_block(x: Tensor, blk: Params, cfg: SAMConfig,
+               windowed: bool) -> Tensor:
+    """One ViT-det block: (windowed or global) attention, then the MLP."""
+    shortcut = x
+    h = layer_norm(x, blk["ln1"])
+    if not windowed:
+        h = _window_attention(h, blk, cfg.heads)
+    else:
+        # Zero-pad the normed activations to a window multiple, attend
+        # per window, crop.
+        g, c = x.shape[1], x.shape[-1]
+        wsz = cfg.window
+        pad = (wsz - g % wsz) % wsz
+        hp = F.pad(h, (0, 0, 0, pad, 0, pad))
+        gp = g + pad
+        nb = gp // wsz
+        hw = hp.reshape(-1, nb, wsz, nb, wsz, c)
+        hw = hw.permute(0, 1, 3, 2, 4, 5).reshape(-1, wsz, wsz, c)
+        hw = _window_attention(hw, blk, cfg.heads)
+        hw = hw.reshape(-1, nb, nb, wsz, wsz, c)
+        hw = hw.permute(0, 1, 3, 2, 4, 5).reshape(-1, gp, gp, c)
+        h = hw[:, :g, :g]
+    x = shortcut + h
+    h = layer_norm(x, blk["ln2"])
+    return x + linear(F.gelu(linear(h, blk["fc1"])), blk["fc2"])
+
+
 def sam_encode_image(params: Params, image: Tensor,
                      cfg: SAMConfig = TEST_SAM) -> Tensor:
     """(B, S, S, 3) normalized image → (B, g, g, neck_dim) embedding."""
     enc = params["encoder"]
-    x = conv2d(image, enc["patch"], stride=cfg.patch, padding="VALID")
-    x = x + enc["pos"]
-    g = x.shape[1]
-    c = x.shape[-1]
-    for i, blk in enumerate(enc["blocks"]):
-        shortcut = x
-        h = layer_norm(x, blk["ln1"])
-        if i in cfg.global_idx:
-            h = _window_attention(h, blk, cfg.heads)
-        else:
-            # Zero-pad the normed activations to a window multiple, attend
-            # per window, crop.
-            wsz = cfg.window
-            pad = (wsz - g % wsz) % wsz
-            hp = F.pad(h, (0, 0, 0, pad, 0, pad))
-            gp = g + pad
-            nb = gp // wsz
-            hw = hp.reshape(-1, nb, wsz, nb, wsz, c)
-            hw = hw.permute(0, 1, 3, 2, 4, 5).reshape(-1, wsz, wsz, c)
-            hw = _window_attention(hw, blk, cfg.heads)
-            hw = hw.reshape(-1, nb, nb, wsz, wsz, c)
-            hw = hw.permute(0, 1, 3, 2, 4, 5).reshape(-1, gp, gp, c)
-            h = hw[:, :g, :g]
-        x = shortcut + h
-        h = layer_norm(x, blk["ln2"])
-        x = x + linear(F.gelu(linear(h, blk["fc1"])), blk["fc2"])
-    x = conv2d(x, enc["neck1"])
-    x = layer_norm(x, enc["neck_ln1"])
-    x = conv2d(x, enc["neck2"])
-    return layer_norm(x, enc["neck_ln2"])
+    with span("sam.encode"):
+        x = conv2d(image, enc["patch"], stride=cfg.patch, padding="VALID")
+        x = x + enc["pos"]
+        for i, blk in enumerate(enc["blocks"]):
+            if i in cfg.global_idx:
+                count("sam.global_blocks")
+                with span("sam.global"):
+                    x = _vit_block(x, blk, cfg, windowed=False)
+            else:
+                count("sam.window_blocks")
+                x = _vit_block(x, blk, cfg, windowed=True)
+        x = conv2d(x, enc["neck1"])
+        x = layer_norm(x, enc["neck_ln1"])
+        x = conv2d(x, enc["neck2"])
+        return layer_norm(x, enc["neck_ln2"])
 
 
 # ------------------------------------------------------------ prompts
@@ -319,6 +338,12 @@ def sam_decode_masks(
     cfg: SAMConfig = TEST_SAM,
 ) -> Tuple[Tensor, Tensor]:
     """(B, g, g, D) + (B, P, D) prompts → (B, num_masks, 4g, 4g), iou."""
+    with span("sam.decode"):
+        return _decode_masks(params, image_embed, prompt_tokens, cfg)
+
+
+def _decode_masks(params: Params, image_embed: Tensor, prompt_tokens: Tensor,
+                  cfg: SAMConfig) -> Tuple[Tensor, Tensor]:
     dec = params["decoder"]
     b, g, _, d = image_embed.shape
     out_tok = torch.cat([dec["iou_token"], dec["mask_tokens"]], 0)
@@ -374,8 +399,9 @@ class Grounder:
     """Text → pixel box seam (GroundingDINO's role). The heuristic boxes
     the foreground band named by the prompt keywords."""
 
-    def ground(self, image: np.ndarray, prompt: str) -> np.ndarray:
-        img = np.asarray(image)
+    def ground(self, image, prompt: str) -> np.ndarray:
+        """(H, W, 3) image, an array or a tensor → xyxy pixel box."""
+        img = to_host(image)
         fg = ~(img > 0.95).all(-1)
         rows = np.where(fg.any(1))[0]
         cols = np.where(fg.any(0))[0]
@@ -401,6 +427,14 @@ class SAMSegmenter:
     mask; with random weights it still runs the whole architecture, and the
     mask falls back to the grounded box ∩ foreground when the decoder is
     untrained (`trust_decoder=False`).
+
+    `segment` returns the (H, W) bool mask where it was made, a tensor on
+    the segmenter's device: the caller moves it if it wants it elsewhere.
+
+    `taps`, when a list, receives one dict per mask predicted: the pixel
+    box (`box`), the decoder's low-resolution mask logits of every mask
+    token (`masks`, (num_masks, 4g, 4g)) and the (H, W) mask (`mask`), as
+    computed — the seam through which a caller reads what a call did.
     """
 
     MEAN = np.array([123.675, 116.28, 103.53], np.float32) / 255.0
@@ -418,6 +452,9 @@ class SAMSegmenter:
         self.trust_decoder = trust_decoder
         # LangSAM uses multimask_output=False (mask token 0).
         self.multimask = multimask
+        self.taps: Optional[list] = None
+        self._mean = torch.tensor(self.MEAN, device=self.device)
+        self._std = torch.tensor(self.STD, device=self.device)
 
     @classmethod
     def random_init(cls, gen: torch.Generator, cfg: SAMConfig = TEST_SAM,
@@ -435,8 +472,9 @@ class SAMSegmenter:
         return cls(convert_torch_sam(_load_torch_state_dict(path)), cfg,
                    **kw)
 
-    def _mask_logits(self, img: np.ndarray, box: np.ndarray) -> Tensor:
-        """(H, W, 3) float image + xyxy pixel box → (H, W) mask logits."""
+    def _mask_logits(self, img, box: np.ndarray) -> Tensor:
+        """(H, W, 3) float image (an array or a tensor) + xyxy pixel box →
+        (H, W) mask logits."""
         from youreditableavatar_tpu_torch.stages.edit_texture import (
             _resize_bilinear)
 
@@ -448,14 +486,15 @@ class SAMSegmenter:
         scl = s / max(h, w)
         rh, rw = max(round(h * scl), 1), max(round(w * scl), 1)
         with torch.no_grad():
-            x = _resize_bilinear(torch.tensor(img, device=dev), rh, rw)
-            x = (x - torch.tensor(self.MEAN, device=dev)) / torch.tensor(
-                self.STD, device=dev)
+            x = _resize_bilinear(to_device(img, dev, torch.float32), rh, rw)
+            x = (x - self._mean) / self._std
             x = F.pad(x, (0, 0, 0, s - rw, 0, s - rh))
             emb = sam_encode_image(self.params, x[None], self.cfg)
-            box_s = torch.tensor(box, device=dev) * scl
+            box_s = to_device(box, dev) * scl
             toks = sam_encode_box(self.params, box_s[None], s)
             masks, iou = sam_decode_masks(self.params, emb, toks, self.cfg)
+            if self.taps is not None:
+                self.taps.append({"box": np.asarray(box), "masks": masks[0]})
             # LangSAM predicts with multimask_output=False (mask token 0);
             # multimask=True takes the best of tokens 1..3 by predicted IoU.
             best = 1 + int(torch.argmax(iou[0, 1:4])) if self.multimask \
@@ -465,20 +504,23 @@ class SAMSegmenter:
                                   : max(round(rw / s * gm), 1)]
             return _resize_bilinear(crop, h, w)
 
-    def segment(self, image, prompt: str) -> np.ndarray:
-        if torch.is_tensor(image):
-            image = image.detach().cpu().numpy()
-        img = np.asarray(image, np.float32)
+    def segment(self, image, prompt: str) -> Tensor:
+        # One upload, which the grounder takes too.
+        img = to_device(image, self.device, torch.float32)
         h, w = img.shape[:2]
         box = self.grounder.ground(img, prompt)
-        mask = (self._mask_logits(img, box) > 0.0).cpu().numpy()
-        if not self.trust_decoder:
-            # An untrained decoder: restrict to the grounded box.
-            keep = np.zeros((h, w), bool)
+        if self.trust_decoder:
+            mask = self._mask_logits(img, box) > 0.0
+        else:
+            # An untrained decoder still runs; the mask is the grounded
+            # box ∩ the foreground.
+            self._mask_logits(img, box)
+            mask = torch.zeros((h, w), dtype=torch.bool, device=self.device)
             x0, y0, x1, y1 = box.astype(int)
-            keep[y0:y1 + 1, x0:x1 + 1] = True
-            fg = ~(img > 0.95).all(-1)
-            mask = keep & fg
+            mask[y0:y1 + 1, x0:x1 + 1] = True
+            mask &= ~(img > 0.95).all(-1)
+        if self.taps is not None:
+            self.taps[-1]["mask"] = mask
         return mask
 
 

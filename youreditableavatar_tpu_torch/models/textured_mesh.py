@@ -142,8 +142,9 @@ class TexturedMeshModel:
         fmask = np.zeros(len(self.faces_np), bool)
         fmask[hit] = True
         hit_mask = fmask.copy()
-        fmask = dilate_face_region(self.faces_np, fmask, dilate_iters)
-        fmask = erode_face_region(self.faces_np, fmask, erode_iters)
+        fmask = dilate_face_region(self.faces_np, torch.as_tensor(fmask),
+                                   dilate_iters)
+        fmask = erode_face_region(self.faces_np, fmask, erode_iters).numpy()
         fmask = fmask | hit_mask
         vmask = vertex_mask_from_faces(self.faces_np, fmask, len(self.verts))
         vmask = vmask & self.editable

@@ -4,8 +4,9 @@ Counterpart of `youreditableavatar_tpu/ops/morphology.py`. The image ops
 are pooling windows with "SAME" padding: `max_pool2d` pads with −inf and
 `avg_pool2d(count_include_pad=True)` with zeros, as the JAX package's
 `reduce_window` calls do. The mesh-region ops are vertex/face adjacency
-sweeps in host numpy (they run between stages, not per step), the same
-code as the JAX package's.
+sweeps with the JAX package's results: the adjacency and the vertex masks
+in host numpy, the face dilation and erosion as gathers over a bool
+tensor, on the device the mask is on.
 """
 
 from __future__ import annotations
@@ -59,32 +60,31 @@ def face_adjacency(faces: np.ndarray) -> np.ndarray:
     return nbr.reshape(3, len(f)).T.astype(np.int32)
 
 
-def dilate_face_region(
-    faces: np.ndarray, face_mask: np.ndarray, iterations: int = 1
-) -> np.ndarray:
-    """Grow a face selection across shared edges (pymeshlab dilate)."""
-    adj = face_adjacency(faces)
-    m = np.asarray(face_mask, bool).copy()
+def dilate_face_region(faces: np.ndarray, face_mask: torch.Tensor,
+                       iterations: int = 1, adjacency=None) -> torch.Tensor:
+    """Grow a (F,) bool tensor selection of faces across shared edges
+    (pymeshlab dilate), on the mask's device. `adjacency` is the faces'
+    `face_adjacency`, an array or a tensor on that device, where the
+    caller keeps it."""
+    adj = face_adjacency(faces) if adjacency is None else adjacency
+    adj = torch.as_tensor(adj, device=face_mask.device).long()
+    m = face_mask
     for _ in range(iterations):
-        nbr_sel = np.zeros_like(m)
-        for k in range(3):
-            valid = adj[:, k] >= 0
-            nbr_sel[valid] |= m[adj[valid, k]]
-        m = m | nbr_sel
+        # A boundary edge's −1 reads the appended slot, never selected.
+        m = m | torch.cat([m, m.new_zeros(1)])[adj].any(1)
     return m
 
 
-def erode_face_region(
-    faces: np.ndarray, face_mask: np.ndarray, iterations: int = 1
-) -> np.ndarray:
-    return ~dilate_face_region(faces, ~np.asarray(face_mask, bool), iterations)
+def erode_face_region(faces: np.ndarray, face_mask: torch.Tensor,
+                      iterations: int = 1, adjacency=None) -> torch.Tensor:
+    return ~dilate_face_region(faces, ~face_mask, iterations, adjacency)
 
 
 def vertex_mask_from_faces(
     faces: np.ndarray, face_mask: np.ndarray, num_verts: int
 ) -> np.ndarray:
     m = np.zeros(num_verts, bool)
-    m[np.unique(np.asarray(faces)[np.asarray(face_mask, bool)])] = True
+    m[np.asarray(faces)[np.asarray(face_mask, bool)].ravel()] = True
     return m
 
 

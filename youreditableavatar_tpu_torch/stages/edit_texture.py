@@ -314,8 +314,8 @@ class InpaintTrainer:
                 # painted mask ∩ person mask says the subject is, dilated
                 # by a 15-px max-pool.
                 person = torch.as_tensor(
-                    np.asarray(self.segmenter.segment(guidance, "person"),
-                               bool), device=dev)
+                    self.segmenter.segment(guidance, "person"),
+                    dtype=torch.bool, device=dev)
                 mm = (masks["inpaint_mask"] > 0.5) & person
                 m = dilate(mm, size=15)[..., None]
             target = guidance * m + current * (1 - m)

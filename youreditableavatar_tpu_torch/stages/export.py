@@ -51,27 +51,24 @@ def compact_mt(mesh: MTOutput) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 def face_components(faces: np.ndarray, num_verts: int) -> np.ndarray:
     """Connected components over the face graph (shared-vertex adjacency).
 
-    Returns (F,) component id per face. Union-find on vertices; faces join
-    their vertices' sets.
+    Returns (F,) component id per face, numbered in order of each
+    component's smallest vertex (the JAX package numbers them by its
+    union-find roots: the same partition, ids permuted). The vertices'
+    components come from `scipy.sparse.csgraph.connected_components`
+    over each face's two edges from its first vertex.
     """
-    parent = np.arange(num_verts)
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
 
-    def find(a):
-        root = a
-        while parent[root] != root:
-            root = parent[root]
-        while parent[a] != root:
-            parent[a], a = root, parent[a]
-        return root
-
-    for f in faces:
-        r0 = find(f[0])
-        r1 = find(f[1])
-        r2 = find(f[2])
-        parent[r1] = r0
-        parent[r2] = r0
-    roots = np.array([find(v) for v in faces[:, 0]])
-    _, comp = np.unique(roots, return_inverse=True)
+    f = np.asarray(faces, np.int64)
+    if len(f) == 0:
+        return np.zeros((0,), np.int64)
+    rows = np.concatenate([f[:, 0], f[:, 0]])
+    cols = np.concatenate([f[:, 1], f[:, 2]])
+    graph = coo_matrix((np.ones(len(rows), np.int8), (rows, cols)),
+                       shape=(num_verts, num_verts))
+    _, labels = connected_components(graph, directed=False)
+    _, comp = np.unique(labels[f[:, 0]], return_inverse=True)
     return comp
 
 
@@ -82,11 +79,7 @@ def remove_floaters(
     if len(faces) == 0:
         return np.zeros((0,), bool)
     comp = face_components(faces, len(verts))
-    keep = np.zeros(len(faces), bool)
-    counts = np.bincount(comp)
-    good = np.flatnonzero(counts >= max(1, int(len(faces) * min_fraction)))
-    keep = np.isin(comp, good)
-    return keep
+    return np.bincount(comp)[comp] >= max(1, int(len(faces) * min_fraction))
 
 
 def export_init_mesh(

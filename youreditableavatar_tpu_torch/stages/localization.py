@@ -9,8 +9,19 @@ erode), drop floaters, and emit `editing_region_info.npy` (vertex + face
 masks).
 
 The visibility pass is `ops/mesh_raster.rasterize_mesh` (its z-buffer
-resolve is kernel K5 on the card); the votes, the morphology and the
-floater removal are host numpy, the same code as the JAX package's.
+resolve is kernel K5 on the card). The votes (each view's face ids
+scattered into a hit mask, where the JAX code takes `np.unique` of them
+on the host) and the morphology (over the mesh's face adjacency, built
+once) run on the device without waiting for it; the face mask comes to
+the host once a call for the floater removal. The results are the JAX
+package's.
+
+Spans (`utils/profiling.span`): `localize.call`, the root of one
+`localize`, holds per view `localize.segment` (the segmenter) and
+`localize.backproject` (the raster and the votes), then
+`localize.regions` (morphology, the face mask's download, floaters,
+masks). Counters: `localize.views`, and the host ↔ device bytes of the
+mesh and the face mask.
 """
 
 from __future__ import annotations
@@ -22,6 +33,8 @@ import numpy as np
 import torch
 
 from youreditableavatar_tpu_torch.models.cameras import GSCamera
+from youreditableavatar_tpu_torch.ops.gaussian_raster.types import (
+    RasterCamera)
 from youreditableavatar_tpu_torch.ops.mesh_raster import (
     MeshRasterConfig,
     rasterize_mesh,
@@ -29,6 +42,7 @@ from youreditableavatar_tpu_torch.ops.mesh_raster import (
 from youreditableavatar_tpu_torch.ops.morphology import (
     dilate_face_region,
     erode_face_region,
+    face_adjacency,
     face_mask_from_vertices,
     vertex_mask_from_faces,
 )
@@ -37,14 +51,17 @@ from youreditableavatar_tpu_torch.stages.export import (
     remove_floaters,
 )
 from youreditableavatar_tpu_torch.utils.device import resolve_device
+from youreditableavatar_tpu_torch.utils.profiling import (
+    count, span, to_device, to_host)
 from youreditableavatar_tpu_torch.utils.registry import register
 
 
 class Segmenter(Protocol):
     """Text-prompted image segmentation (LangSAM role)."""
 
-    def segment(self, image: np.ndarray, prompt: str) -> np.ndarray:
-        """(H, W, 3) float image + prompt → (H, W) bool mask."""
+    def segment(self, image, prompt: str):
+        """(H, W, 3) float image + prompt → (H, W) bool mask, a host array
+        or a tensor."""
         ...
 
 
@@ -105,6 +122,8 @@ class LocalMeshEditing:
         self.faces = np.asarray(faces, np.int64)
         self.segmenter = segmenter
         self.cfg = cfg
+        self.adjacency = torch.as_tensor(face_adjacency(self.faces),
+                                         device=self.device).long()
 
     def localize(
         self,
@@ -117,22 +136,57 @@ class LocalMeshEditing:
 
         Returns dict(editing_mask (V,), editing_mask_faces (F,)).
         """
-        votes = np.zeros(len(self.faces), np.int32)
-        seen = np.zeros(len(self.faces), np.int32)
-        vt = torch.tensor(self.verts, device=self.device)
-        ft = torch.tensor(self.faces.astype(np.int32), device=self.device)
-        for cam, img in zip(cameras, images):
-            mask2d = np.asarray(self.segmenter.segment(img, prompt), bool)
-            out = rasterize_mesh(vt, ft, cam.raster_camera(self.device),
-                                 self.cfg.mesh_cfg)
-            fid = out.face_id.cpu().numpy()
-            vis = fid >= 0
-            seen[np.unique(fid[vis])] += 1
-            votes[np.unique(fid[vis & mask2d])] += 1
+        with span("localize.call"):
+            votes = torch.zeros(len(self.faces), dtype=torch.int32,
+                                device=self.device)
+            seen = torch.zeros_like(votes)
+            vt = to_device(self.verts, self.device)
+            ft = to_device(self.faces.astype(np.int32), self.device)
+            # The cameras' uploads each wait for the stream: all at the
+            # start, before the views queue their work.
+            rcams = [cam.raster_camera(self.device) for cam in cameras]
+            for rcam, img in zip(rcams, images):
+                count("localize.views")
+                with span("localize.segment"):
+                    # One upload of the image; the mask, from whichever
+                    # side the segmenter made it on, goes to the device,
+                    # where the votes are counted.
+                    mask2d = torch.as_tensor(
+                        self.segmenter.segment(
+                            to_device(img, self.device, torch.float32),
+                            prompt),
+                        device=self.device)
+                with span("localize.backproject"):
+                    self._backproject(rcam, mask2d, vt, ft, votes, seen)
+            with span("localize.regions"):
+                return self._regions(votes, seen, output_path)
 
-        fmask = votes >= np.minimum(self.cfg.min_views, np.maximum(seen, 1))
-        fmask = dilate_face_region(self.faces, fmask, self.cfg.dilate_iters)
-        fmask = erode_face_region(self.faces, fmask, self.cfg.erode_iters)
+    def _backproject(self, rcam: RasterCamera, mask2d: torch.Tensor, vt, ft,
+                     votes: torch.Tensor, seen: torch.Tensor) -> None:
+        """One view's votes, on the device and without waiting for it:
+        every face the view shows is seen, every face it shows inside the
+        mask is voted for."""
+        out = rasterize_mesh(vt, ft, rcam, self.cfg.mesh_cfg)
+        # Hits by face id + 1: the background's −1 and the pixels outside
+        # the mask land in slot 0.
+        ids = out.face_id.reshape(-1).long() + 1
+        for counts, pixels in ((seen, ids), (votes, ids * mask2d.reshape(-1))):
+            hit = torch.zeros(len(self.faces) + 1, dtype=torch.bool,
+                              device=self.device)
+            # `index_fill_`, not `hit[pixels] = True`, which uploads the
+            # value and waits for the stream.
+            counts += hit.index_fill_(0, pixels, True)[1:]
+
+    def _regions(self, votes: torch.Tensor, seen: torch.Tensor,
+                 output_path: Optional[str]) -> dict:
+        # A face is kept where min(min_views, views that saw it) voted for
+        # it; the morphology runs where the votes are.
+        fmask = votes >= torch.clamp(seen, min=1, max=self.cfg.min_views)
+        fmask = dilate_face_region(self.faces, fmask, self.cfg.dilate_iters,
+                                   self.adjacency)
+        fmask = to_host(erode_face_region(self.faces, fmask,
+                                          self.cfg.erode_iters,
+                                          self.adjacency))
 
         # Floater removal on the selected sub-mesh.
         sel = np.flatnonzero(fmask)

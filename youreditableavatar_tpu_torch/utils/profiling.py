@@ -12,6 +12,11 @@ Counterpart of `youreditableavatar_tpu/utils/profiling.py`:
     host interval, its parent and root span and, where CUDA is
     initialised, a pair of timing events on the current stream. It adds no
     host synchronisation; `take_spans()` reads the events;
+  * `count(name, n)` — a program counter (work done, bytes moved). Off,
+    it is one bool test; inside a `counting()` block it adds `n` to the
+    block's `collections.Counter` (and to every enclosing block's).
+    `to_device` / `to_host` move a caller's data either way and count
+    the bytes they copy (`to_device` does not wait for the stream);
   * `MetricsLogger` — a JSONL metrics stream, line for line the JAX
     package's (+ TensorBoard when asked and installed).
 
@@ -20,6 +25,7 @@ Not carried over: `StepTimer`, whose every mark waited for the card.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -164,6 +170,62 @@ def take_spans() -> List[Span]:
         out.append(Span(r.name, parent, index.get(id(r.root), -1), r.thread,
                         r.host_start_ns, r.host_end_ns, ms))
     return out
+
+
+_COUNTERS: List[collections.Counter] = []
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to counter `name` of every open `counting()` block; nothing
+    when none is open."""
+    if _COUNTERS:
+        for c in _COUNTERS:
+            c[name] += n
+
+
+@contextlib.contextmanager
+def counting():
+    """Yield a `collections.Counter` that the program's `count()` calls
+    inside the block add to (from any thread)."""
+    counter = collections.Counter()
+    with _RECORDER.lock:
+        _COUNTERS.append(counter)
+    try:
+        yield counter
+    finally:
+        with _RECORDER.lock:
+            _COUNTERS[:] = [c for c in _COUNTERS if c is not counter]
+
+
+def to_device(data, device, dtype=None) -> torch.Tensor:
+    """`data`, a host array or a tensor, as a tensor on `device` (cast to
+    `dtype` where given): the one place a caller's data is moved to the
+    device. A copy from the host counts its bytes as `h2d_bytes`; to a
+    CUDA device it goes through pinned memory and does not wait for the
+    stream, so the host keeps queueing work behind it."""
+    device = torch.device(device)
+    if torch.is_tensor(data) and (data.device.type != "cpu"
+                                  or device.type == "cpu"):
+        # Already on a device (or a host tensor for the host): no upload.
+        return data.detach().to(device=device, dtype=dtype)
+    # Copied only where it is not contiguous or not writable (a torch
+    # tensor cannot share a read-only array).
+    host = torch.as_tensor(np.require(data, requirements="CW"))
+    if dtype is not None:
+        host = host.to(dtype)
+    count("h2d_bytes", host.numel() * host.element_size())
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.clone().to(device)
+
+
+def to_host(data) -> np.ndarray:
+    """`data`, a tensor or a host array, as a host array; a tensor's
+    bytes are counted as `d2h_bytes`."""
+    if not torch.is_tensor(data):
+        return np.asarray(data)
+    count("d2h_bytes", data.numel() * data.element_size())
+    return data.detach().cpu().numpy()
 
 
 @contextlib.contextmanager
