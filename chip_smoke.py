@@ -184,6 +184,40 @@ K4_PER_EDIT_STEP = 3  # selected-corner requery, midpoints, recon points
 # 512² normal maps, and the networks' f32-vs-f64 limit on the card (max
 # error as a share of the f64 result's largest entry).
 SD_STEPS, SD_LATENT, SD_F64_RTOL = 20, 64, 1e-4
+# K7's check: the SDS step's costliest and edge convolutions, then the
+# inpaint call's costliest (name, x shape, HWIO w shape, stride, pads),
+# each held, forward and input gradient, to CONV_ERR_OF_CUDNN ×
+# cuDNN-f32's max |Δ| against f64 on the same inputs. The first is the
+# row of the kernels line; the UNet's 8² level splits K, whose second
+# pass is conv_reduce's row.
+CONV_SAME = ((1, 1), (1, 1))
+CONV_SHAPES = (
+    ("VAE encoder 3×3 at 512²·128", (1, 512, 512, 128), (3, 3, 128, 128),
+     1, CONV_SAME),
+    ("VAE encoder downsample 3×3/2 (0, 1)", (1, 512, 512, 128),
+     (3, 3, 128, 128), 2, ((0, 1), (0, 1))),
+    ("UNet 3×3 at 8²·1280, CFG batch 2", (2, 8, 8, 1280), (3, 3, 1280, 1280),
+     1, CONV_SAME),
+    ("UNet conv_out 320→4 at 64²", (2, 64, 64, 320), (3, 3, 320, 4), 1,
+     CONV_SAME),
+    ("VAE encoder conv_in 3→128 at 512²", (1, 512, 512, 3), (3, 3, 3, 128),
+     1, CONV_SAME),
+    ("VAE encoder 3×3 at 256²·256", (1, 256, 256, 256), (3, 3, 256, 256),
+     1, CONV_SAME),
+    ("VAE encoder 3×3 at 128²·512", (1, 128, 128, 512), (3, 3, 512, 512),
+     1, CONV_SAME),
+    ("SDXL 3×3 at 32²·1280, CFG batch 2", (2, 32, 32, 1280),
+     (3, 3, 1280, 1280), 1, CONV_SAME),
+    ("SDXL 3×3 at 128²·320", (2, 128, 128, 320), (3, 3, 320, 320), 1,
+     CONV_SAME),
+    ("SDXL 3×3 at 64²·640", (2, 64, 64, 640), (3, 3, 640, 640), 1,
+     CONV_SAME),
+    ("SDXL 3×3 2560→1280 at 32²", (2, 32, 32, 2560), (3, 3, 2560, 1280), 1,
+     CONV_SAME),
+    ("SDXL 3×3 at 64²·1280", (2, 64, 64, 1280), (3, 3, 1280, 1280), 1,
+     CONV_SAME),
+)
+CONV_SPLIT_K, CONV_ERR_OF_CUDNN = 2, 2.0
 # The segment phase: GroundingDINO at the "sam" backend's 800², its
 # parameter count from the JAX package's init tree, and the f32-vs-f64
 # limits of the segmentation networks, set from the H100's readings: SAM's
@@ -535,6 +569,7 @@ def phase_kernels(dev, report):
     check_sharded_layout(dev)
     report["mesh_resolve"] = check_mesh_resolve(dev)
     report["hash_scatter"] = check_hash_scatter(dev)
+    report.update(check_conv(dev))
 
 
 def entry(fn_name):
@@ -1394,6 +1429,126 @@ def check_mesh_resolve(dev):
               f"{MESH_OPS_PER_EVAL} ops: {dense[0]:.4f} ms); plain version on "
               f"the card {out['plain_ms']:.2f} ms")
         return out
+
+
+def check_conv(dev):
+    """K7 at CONV_SHAPES: forward and input gradient against f64 (cuDNN's
+    `F.conv2d` through `sd_layers.conv2d_plain`), each within
+    CONV_ERR_OF_CUDNN of cuDNN-f32's own error, two launches bit-equal;
+    timed beside its plain decomposition and cuDNN in f32. Then the
+    split-K pass alone against its plain, in-order sum, bit for bit."""
+    from youreditableavatar_tpu_torch import _kernels
+    from youreditableavatar_tpu_torch.guidance.sd_layers import conv2d_plain
+    from youreditableavatar_tpu_torch.ops import conv_cuda as cc
+
+    def err(got, ref):
+        return float((got.double() - ref).abs().max())
+
+    def input_grad(dy, w, x_shape, stride, pads):
+        x = torch.zeros(x_shape, dtype=dy.dtype, device=dev,
+                        requires_grad=True)
+        with torch.enable_grad():
+            y = conv2d_plain(x, w, None, stride, pads)
+        return lambda: torch.autograd.grad(y, x, dy, retain_graph=True)[0]
+
+    rows = {}
+    for n, (what, x_shape, w_shape, stride, pads) in enumerate(CONV_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(20 + n)
+        x = torch.randn(x_shape, generator=g, device=dev)
+        w = torch.randn(w_shape, generator=g, device=dev) / (
+            w_shape[0] * w_shape[1] * w_shape[2]) ** 0.5
+        b = torch.randn((w_shape[3],), generator=g, device=dev) * 0.1
+        with torch.no_grad():
+            y = cc.conv2d_forward(x, w, b, stride, pads)
+            same_f = torch.equal(y, cc.conv2d_forward(x, w, b, stride, pads))
+            ref = conv2d_plain(x.double(), w.double(), b.double(), stride,
+                               pads)
+            fwd = (err(y, ref), err(conv2d_plain(x, w, b, stride, pads), ref))
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        dx = cc.conv2d_input_grad(dy, w, x_shape, stride, pads)
+        same_d = torch.equal(dx, cc.conv2d_input_grad(dy, w, x_shape, stride,
+                                                      pads))
+        cudnn_d = input_grad(dy, w, x_shape, stride, pads)
+        ref = input_grad(dy.double(), w.double(), x_shape, stride, pads)()
+        bwd = (err(dx, ref), err(cudnn_d(), ref))
+        del ref
+        bytes_moved = 4 * (x.numel() + w.numel() + y.numel())
+        ops = 2 * y.numel() * w_shape[0] * w_shape[1] * w_shape[2]
+        t = dict(
+            forward=(device_ms(lambda: cc.conv2d_forward(x, w, b, stride,
+                                                         pads), 20),
+                     device_ms(lambda: cc.conv2d_forward_plain(
+                         x, w, b, stride, pads), 3, warmup=1),
+                     device_ms(lambda: conv2d_plain(x, w, b, stride, pads),
+                               20)),
+            input_grad=(device_ms(lambda: cc.conv2d_input_grad(
+                dy, w, x_shape, stride, pads), 20),
+                device_ms(lambda: cc.conv2d_input_grad_plain(
+                    dy, w, x_shape, stride, pads), 3, warmup=1),
+                device_ms(cudnn_d, 20)))
+        bnd = bound(bytes_moved, ops)
+        for name, (ek, e32), same in (("forward", fwd, same_f),
+                                      ("input_grad", bwd, same_d)):
+            ms, plain_ms, lib_ms = t[name]
+            print(f"  conv_{name}, {what}: x {x_shape} w {w_shape} stride "
+                  f"{stride} pads {pads}: max |K7 - f64| {ek:.3e}, cuDNN f32 "
+                  f"{e32:.3e} (ratio {ek / e32 if e32 else float('inf'):.3f}, limit "
+                  f"{CONV_ERR_OF_CUDNN}); two launches bit-equal {same}; "
+                  f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{bnd[0] / ms:.3f} of the bound {bnd[0]:.4f} ms by "
+                  f"{bnd[1]}); plain {plain_ms:.3f} ms; cuDNN f32 "
+                  f"{lib_ms:.4f} ms")
+            if not (ek <= CONV_ERR_OF_CUDNN * e32 and same):
+                raise AssertionError(f"conv_{name} at {what}: {ek:.3e} "
+                                     f"against cuDNN f32's {e32:.3e}, "
+                                     f"bit-equal {same}")
+            row = rows.setdefault(f"conv_{name}", dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound=bnd))
+            row["max_abs_err"] = max(row["max_abs_err"], ek)
+        del x, w, b, y, dy, dx, cudnn_d
+        torch.cuda.empty_cache()
+
+    # The split-K pass at the UNet's 8² level, launched alone.
+    _, x_shape, w_shape, stride, pads = CONV_SHAPES[CONV_SPLIT_K]
+    oh, ow = cc.out_size(x_shape[1], x_shape[2], w_shape[0], w_shape[1],
+                         stride, pads)
+    m, n = x_shape[0] * oh * ow, w_shape[3]
+    _, splits, _ = cc.plan(m, n, w_shape[0] * w_shape[1] * w_shape[2],
+                           cc._sm_count(dev))
+    if splits < 2:
+        raise AssertionError(f"{CONV_SHAPES[CONV_SPLIT_K][0]} splits no K")
+    g = torch.Generator(device=dev).manual_seed(30)
+    ws = torch.randn((splits, m, n), generator=g, device=dev)
+    b = torch.randn((n,), generator=g, device=dev)
+    out = torch.empty((m, n), device=dev)
+
+    def reduce():
+        _kernels.launch("conv_reduce", "yea_conv_reduce", dev, ws.data_ptr(),
+                        b.data_ptr(), out.data_ptr(), m * n, n, splits)
+
+    def reduce_plain():
+        acc = ws[0]
+        for part in ws[1:]:
+            acc = acc + part
+        return acc + b
+
+    reduce()
+    plain = reduce_plain()
+    e = float((out - plain).abs().max())
+    rows["conv_reduce"] = dict(
+        max_abs_err=e, ms=device_ms(reduce, 50),
+        plain_ms=device_ms(reduce_plain, 20),
+        library_ms=device_ms(lambda: ws.sum(0) + b, 20),
+        bound=bound(4 * ((splits + 1) * m * n + n), splits * m * n))
+    r = rows["conv_reduce"]
+    print(f"  conv_reduce, {splits} splits of {m} × {n}: bit-equal to the "
+          f"in-order sum {torch.equal(out, plain)}; {r['ms']:.4f} ms (bound "
+          f"{r['bound'][0]:.4f} ms by {r['bound'][1]}); plain "
+          f"{r['plain_ms']:.4f} ms; sum(0) + bias {r['library_ms']:.4f} ms")
+    if not torch.equal(out, plain):
+        raise AssertionError("conv_reduce differs from the in-order sum")
+    return rows
 
 
 def phase_render(dev, kernels):
@@ -2297,14 +2452,49 @@ def fmt_ms(m):
     return f"{m[0]:.3f} ms (min {m[1]:.3f}, max {m[2]:.3f})"
 
 
+class sd_convolutions:
+    """Context: `sd_layers.conv2d`'s CUDA calls counted (`flops`, 2·M·N·K
+    each: torch's FLOP counter cannot see the K7 kernel's launches) and,
+    with `cudnn=True`, run through `sd_layers.conv2d_plain` (cuDNN's
+    `F.conv2d`) instead of K7: for an f64 reference, which K7 does not
+    take, and for a TF32 control, whose convolutions then compute in
+    TF32 as well."""
+
+    def __init__(self, cudnn=False):
+        self.cudnn, self.flops = cudnn, 0
+
+    def __enter__(self):
+        from youreditableavatar_tpu_torch.guidance.sd_layers import (
+            conv2d_plain)
+        from youreditableavatar_tpu_torch.ops import conv_cuda
+
+        self._module, self._inner = conv_cuda, conv_cuda.conv2d
+        run = conv2d_plain if self.cudnn else self._inner
+
+        def conv2d(x, w, b, stride, pads):
+            oh, ow = conv_cuda.out_size(x.shape[1], x.shape[2], w.shape[0],
+                                        w.shape[1], stride, pads)
+            self.flops += 2 * x.shape[0] * oh * ow * w.numel()
+            return run(x, w, b, stride, pads)
+
+        conv_cuda.conv2d = conv2d
+        return self
+
+    def __exit__(self, *exc):
+        self._module.conv2d = self._inner
+        return False
+
+
 def flops_of(fn):
     """Matmul and convolution FLOPs of one call of `fn`, counted by
-    torch.utils.flop_counter from the shapes of the ops it runs."""
+    torch.utils.flop_counter from the shapes of the ops it runs (and, for
+    the K7 convolutions it cannot see, by `sd_convolutions`)."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as counter:
+    with FlopCounterMode(display=False) as counter, \
+            sd_convolutions() as convs:
         fn()
-    return counter.get_total_flops()
+    return counter.get_total_flops() + convs.flops
 
 
 def tree_bytes(tree):
@@ -2328,14 +2518,18 @@ def check_f64(name, run, params, rtol):
     with torch.no_grad():
         y32 = run(params, torch.float32)
         p64 = tree_to(params, tree_leaves(params)[0].device, torch.float64)
-        y64 = run(p64, torch.float64)
+        with sd_convolutions(cudnn=True):  # K7 takes f32 alone
+            y64 = run(p64, torch.float64)
         del p64
         tf32 = (torch.backends.cuda.matmul.allow_tf32,
                 torch.backends.cudnn.allow_tf32)
         try:
             torch.backends.cuda.matmul.allow_tf32 = True
             torch.backends.cudnn.allow_tf32 = True
-            y_tf32 = run(params, torch.float32)
+            # K7 computes in f32 whatever the flags say: the control's
+            # convolutions go to cuDNN, in TF32.
+            with sd_convolutions(cudnn=True):
+                y_tf32 = run(params, torch.float32)
         finally:
             (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32) = tf32
@@ -2490,7 +2684,8 @@ def phase_sd15(dev, kernels):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         launches = {k: kernels.LAUNCHES[k]
-                    for k in ("hash_scatter", "mesh_resolve")}
+                    for k in ("hash_scatter", "mesh_resolve", "conv_forward",
+                              "conv_input_grad", "conv_reduce")}
         peak = torch.cuda.max_memory_allocated() / 2**30
         moved = float((trainer.params.grid.detach()
                        - trainer.frozen_params.grid).abs().sum())
@@ -2516,6 +2711,9 @@ def phase_sd15(dev, kernels):
             raise AssertionError(f"the {mode} edit did not move the field")
         if launches["hash_scatter"] != K4_PER_EDIT_STEP * SD_STEPS:
             raise AssertionError("hash_scatter did not launch 3 times a step")
+        if mode == "sds" and not (launches["conv_forward"]
+                                  and launches["conv_input_grad"]):
+            raise AssertionError("the networks' convolutions did not run K7")
         if mode == "du" and refreshes != list(range(0, SD_STEPS, DU_PER_EDIT)):
             raise AssertionError(f"refreshes at steps {refreshes}")
         if mode == "sds":
@@ -2525,7 +2723,7 @@ def phase_sd15(dev, kernels):
         results[mode] = launches
         del trainer, guidance, field, params, geometry, part
         torch.cuda.empty_cache()
-    return results
+    return results["sds"]  # K7's main path; the du edit's launches printed
 
 
 
@@ -3319,6 +3517,10 @@ SOURCES = {
                      "youreditableavatar_tpu/ops/mesh_raster/raster.py:385"),
     "hash_scatter": ("youreditableavatar_tpu_torch/csrc/hash_scatter.cu",
                      "youreditableavatar_tpu/ops/hashgrid_pallas.py:148"),
+    # No Pallas kernel: K7 replaces the JAX package's shifted matmuls.
+    **{name: ("youreditableavatar_tpu_torch/csrc/conv.cu",
+              "youreditableavatar_tpu/guidance/sd_layers.py:40")
+       for name in ("conv_forward", "conv_input_grad", "conv_reduce")},
 }
 
 
@@ -3416,7 +3618,8 @@ def main(argv) -> int:
         return 1
     # Each kernel's launches come from the run of its own main path.
     main_path = {"mesh_resolve": "edit", "hash_scatter": "spatial",
-                 "composite_backward_pairs": "sharded"}
+                 "composite_backward_pairs": "sharded", "conv_forward": "sd15",
+                 "conv_input_grad": "sd15", "conv_reduce": "sd15"}
 
     kernels = []
     for name in _kernels.KERNEL_NAMES if "kernels" in results else ():

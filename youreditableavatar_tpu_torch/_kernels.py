@@ -44,6 +44,9 @@ SOURCE_FLAGS: Dict[str, list] = {
     "composite.cu": ["--fmad=false", "-Xptxas", "-v"],
     "mesh_resolve.cu": ["--fmad=false"],
     "hash_scatter.cu": [],
+    # K7 multiplies with explicit `fmaf` alone; ptxas reports its
+    # registers, shared memory and spills.
+    "conv.cu": ["-Xptxas", "-v"],
 }
 
 KERNEL_NAMES = (
@@ -55,6 +58,9 @@ KERNEL_NAMES = (
     "composite_backward_pairs",
     "mesh_resolve",
     "hash_scatter",
+    "conv_forward",
+    "conv_input_grad",
+    "conv_reduce",
 )
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 GRAPHS: Dict[str, int] = {"captured": 0, "replayed": 0, "eager": 0}
@@ -75,6 +81,8 @@ _SIGNATURES = {
                                      _P, _I, _I, _I, _I, _P],
     "yea_mesh_resolve": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "yea_hash_scatter": [_P, _P, _P, _I, _L, _I, _P, _P],
+    "yea_conv": [_P, _I, _I, _I, _I, _I, _I, _P],
+    "yea_conv_reduce": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

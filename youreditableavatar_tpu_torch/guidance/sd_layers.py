@@ -9,13 +9,12 @@ HWIO conv kernels and (in, out) linear weights. So a JAX parameter tree
 carries across with `params_from_numpy`.
 
 The JAX version spells the convolution as shifted matmuls because the
-TPU's conv lowering is slow; here it is `F.conv2d` on the same layouts
-(an NHWC tensor permuted to NCHW is channels-last in memory, which cuDNN
-takes as it is), and attention is two matmuls with the logits and the
-softmax in f32. Keep TF32 off on the card
-(`torch.backends.cuda.matmul.allow_tf32 = False`,
-`torch.backends.cudnn.allow_tf32 = False`, as `chip_smoke.py` sets) so
-the networks compute in f32 as the JAX package's do.
+TPU's conv lowering is slow; here a CUDA tensor runs the hand-written f32
+implicit GEMM K7 (`ops/conv_cuda.py`, FFMA only, in one fixed summation
+order) on the same layouts, and a CPU tensor `F.conv2d`. Attention is two
+matmuls with the logits and the softmax in f32. Keep TF32 off on the card
+(`torch.backends.cuda.matmul.allow_tf32 = False`, as `chip_smoke.py`
+sets) so the networks compute in f32 as the JAX package's do.
 
 The inits draw from a `torch.Generator` where the JAX ones take a key, on
 the generator's device (a CUDA generator draws a full-width network on
@@ -32,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from youreditableavatar_tpu_torch.ops import conv_cuda
+
 Params = Dict[str, Any]
 
 
@@ -46,7 +47,9 @@ def linear(x: Tensor, p: Params) -> Tensor:
 def conv2d(x: Tensor, p: Params, stride: int = 1, padding="SAME") -> Tensor:
     """2-D convolution of NHWC `x` with the HWIO kernel `p["w"]` (+ `p["b"]`).
 
-    `padding` is "SAME", "VALID" or ((top, bottom), (left, right)).
+    `padding` is "SAME", "VALID" or ((top, bottom), (left, right)). CUDA
+    tensors run the hand-written implicit GEMM K7 (`ops/conv_cuda.py`),
+    forward and input gradient; CPU tensors run `conv2d_plain`.
     """
     w = p["w"]  # (kh, kw, cin, cout) HWIO
     kh, kw, _, _ = w.shape
@@ -60,16 +63,26 @@ def conv2d(x: Tensor, p: Params, stride: int = 1, padding="SAME") -> Tensor:
     elif padding == "VALID":
         pads = ((0, 0), (0, 0))
     else:
-        pads = tuple(tuple(q) for q in padding)
+        pads = tuple((int(q[0]), int(q[1])) for q in padding)
+    if x.is_cuda:  # K7, f32 only: it raises on other types
+        return conv_cuda.conv2d(x, w, p.get("b"), s, pads)
+    return conv2d_plain(x, w, p.get("b"), s, pads)
+
+
+def conv2d_plain(x: Tensor, w: Tensor, b: Optional[Tensor], stride: int,
+                 pads) -> Tensor:
+    """`F.conv2d` of NHWC `x` with the HWIO `w` (+ `b`) and explicit
+    ((top, bottom), (left, right)) pads: K7's plain version, on any
+    device and dtype."""
     xn = x.permute(0, 3, 1, 2)
     if pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]:
         conv_pad = (pads[0][0], pads[1][0])  # symmetric: no padded copy
     else:
         xn = F.pad(xn, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
         conv_pad = 0
-    y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=s,
+    y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride,
                  padding=conv_pad).permute(0, 2, 3, 1)
-    return y + p["b"] if "b" in p else y
+    return y + b if b is not None else y
 
 
 def stats_dtype(dtype: torch.dtype) -> torch.dtype:
