@@ -14,8 +14,13 @@ sinusoid features 1e-5 absolute (their arguments reach 999 rad, where one
 f32 rounding of the argument is 6e-5 rad; 1.7e-6 observed); the trainers' first step 1e-5 relative
 (normal consistency 1e-6 absolute, as `test_torch_spatial.py`), the
 second within its Adam drift (2e-3 relative). Converters, manifests and
-tokenizer ids are held exactly.
+tokenizer ids are held exactly. `sd_layers.attention` is also held, with
+each caller's bias, against the JAX attentions of CLIP, GroundingDINO and
+SAM that it replaced (SAM's windowed one at the SAM tests' encoder
+tolerance).
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -30,19 +35,24 @@ from torch_port_helpers import (
 )
 
 from youreditableavatar_tpu.guidance import clip_text as jc
+from youreditableavatar_tpu.guidance import grounding_dino as jg
 from youreditableavatar_tpu.guidance import manifests as jm
+from youreditableavatar_tpu.guidance import sam as js
 from youreditableavatar_tpu.guidance import sd15 as j15
 from youreditableavatar_tpu.guidance import sd_layers as jl
 from youreditableavatar_tpu.guidance import sd_unet as ju
 from youreditableavatar_tpu.guidance import sd_vae as jv
 from youreditableavatar_tpu_torch.guidance import clip_text as tc
+from youreditableavatar_tpu_torch.guidance import grounding_dino as tg
 from youreditableavatar_tpu_torch.guidance import manifests as tm
+from youreditableavatar_tpu_torch.guidance import sam as ts
 from youreditableavatar_tpu_torch.guidance import sd15 as t15
 from youreditableavatar_tpu_torch.guidance import sd_layers as tl
 from youreditableavatar_tpu_torch.guidance import sd_unet as tu
 from youreditableavatar_tpu_torch.guidance import sd_vae as tv
 
 RTOL_OF_MAX = 1e-5
+SAM_ENC_TOL = dict(atol=2e-5, rtol=1e-4)  # test_torch_sam.py's ENC_TOL
 
 
 def np_tree(tree):
@@ -161,6 +171,98 @@ BLOCKS = ["conv3_same", "conv3_stride2_sym", "conv3_stride2_asym",
 def test_layer_matches_jax(name):
     ref, got = _block_case(name)
     assert_close(got, ref, err=name)
+
+
+def _causal_attention_where(x, p, heads):
+    """CLIP's attention as the port wrote it before the shared one: its
+    own head split, the causal mask applied with `torch.where`."""
+    b, n, d = x.shape
+    dh = d // heads
+
+    def split(y):
+        return y.reshape(b, n, heads, dh).transpose(1, 2)
+
+    q, k, v = (split(tl.linear(x, p[name])) for name in ("q", "k", "v"))
+    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+    mask = torch.ones((n, n), dtype=torch.bool).tril()
+    logits = torch.where(mask[None, None], logits, torch.full((), -1e9))
+    out = torch.matmul(torch.softmax(logits, dim=-1), v)
+    return tl.linear(out.transpose(1, 2).reshape(b, n, d), p["out"])
+
+
+def _attention_case(case):
+    """(JAX output, port output, tolerance) of one former private attention
+    of the port, each now `sd_layers.attention` with its callers' bias."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def a(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    def lins(d, names, dout=None):
+        return {n: {"w": a(d, dout or d) / np.sqrt(d), "b": a(dout or d) * .1}
+                for n in names}
+
+    def jtree(p):
+        return jax.tree_util.tree_map(jnp.asarray, p)
+
+    if case == "sd_no_bias":  # any leading dims: (2, 3, L, D)
+        q, k, v = a(2, 3, 6, 16), a(2, 3, 9, 16), a(2, 3, 9, 16)
+        ref = jl.attention(q.reshape(6, 6, 16), k.reshape(6, 9, 16),
+                           v.reshape(6, 9, 16), 4).reshape(2, 3, 6, 16)
+        return ref, tl.attention(T(q), T(k), T(v), 4), RTOL_OF_MAX
+    if case == "clip_causal":
+        x, p = a(2, 7, 16), lins(16, ("q", "k", "v", "out"))
+        h = T(x)
+        got = tl.linear(tl.attention(
+            tl.linear(h, carry(p)["q"]), tl.linear(h, carry(p)["k"]),
+            tl.linear(h, carry(p)["v"]), 4, tc._causal_bias(7, h.device)),
+            carry(p)["out"])
+        assert torch.equal(got, _causal_attention_where(h, carry(p), 4))
+        return jc._causal_attention(x, jtree(p), 4), got, RTOL_OF_MAX
+    if case == "swin_shifted":  # (nW, W², C), relative bias + shift mask
+        window, shift, heads = 4, 2, 2
+        x, p = a(4, window * window, 16), lins(16, ("q", "k", "v", "o"))
+        table = a((2 * window - 1) ** 2, heads) * 0.5
+        regions = tg._shift_regions(8, 8, window, shift)
+        bias = (table[tg._rel_index(window)].transpose(2, 0, 1)[None]
+                + np.where(regions[:, None, :] != regions[:, :, None],
+                           np.float32(-1e9), np.float32(0))[:, None])
+        return (jg._mha(x, x, x, jtree(p), heads, mask=bias),
+                tg._attend(T(x), T(x), T(x), carry(p), heads, T(bias)),
+                RTOL_OF_MAX)
+    if case == "bert_text_mask":  # (T, D), padded tokens hidden
+        x, p = a(12, 16), lins(16, ("q", "k", "v", "o"))
+        keep = np.arange(12) < 7
+        bias = np.where(keep, np.float32(0), np.float32(-1e9))[None, None]
+        assert torch.equal(tg._text_mask(torch.tensor(keep), torch.float32),
+                           T(bias))
+        return (jg._mha(x, x, x, jtree(p), 2, mask=bias),
+                tg._attend(T(x), T(x), T(x), carry(p), 2, T(bias)),
+                RTOL_OF_MAX)
+    if case == "sam_rel_pos":  # decomposed relative position, one bias
+        size, d, heads = 4, 32, 4
+        x = a(3, size, size, d)
+        p = {**lins(d, ("qkv",), 3 * d), **lins(d, ("proj",)),
+             "rel_h": a(2 * size - 1, d // heads) * 0.5,
+             "rel_w": a(2 * size - 1, d // heads) * 0.5}
+        return (js._window_attention(x, jtree(p), heads),
+                ts._window_attention(T(x), carry(p), heads), None)
+    raise KeyError(case)
+
+
+@pytest.mark.parametrize("case", ["sd_no_bias", "clip_causal",
+                                  "swin_shifted", "bert_text_mask",
+                                  "sam_rel_pos"])
+def test_attention_matches_each_former_copy_in_jax(case):
+    """`sd_layers.attention` stands in for the four private attentions the
+    port had (CLIP's, SAM's two, GroundingDINO's): each case holds it,
+    with that caller's bias, against the JAX function it replaced."""
+    ref, got, tol = _attention_case(case)
+    if tol is None:  # SAM's encoder tolerance: one more f32 add reordered
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   **SAM_ENC_TOL)
+    else:
+        assert_close(got, ref, tol, err=case)
 
 
 @pytest.mark.parametrize("flip", [True, False])

@@ -17,8 +17,8 @@ onto the tree.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
-import math
 from typing import Any, Dict, List
 
 import numpy as np
@@ -36,7 +36,7 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     linear_from_torch,
     norm_from_torch,
     params_from_numpy,
-    stats_dtype,
+    project_attention,
     t2t,
 )
 
@@ -87,23 +87,11 @@ def clip_params_from_numpy(tree, device=None) -> Params:
     return params_from_numpy(tree, device)
 
 
-def _causal_attention(x: Tensor, p: Params, heads: int) -> Tensor:
-    """Causal multi-head self-attention (logits and softmax in f32)."""
-    b, n, d = x.shape
-    dh = d // heads
-
-    def split(y):
-        return y.reshape(b, n, heads, dh).transpose(1, 2)
-
-    q, k, v = (split(linear(x, p[name])) for name in ("q", "k", "v"))
-    logits = torch.matmul(q, k.transpose(-1, -2)).to(
-        stats_dtype(x.dtype)) / math.sqrt(dh)
-    mask = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
-    logits = torch.where(mask[None, None], logits,
-                         torch.full((), -1e9, device=x.device))
-    w = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.matmul(w, v).transpose(1, 2).reshape(b, n, d)
-    return linear(out, p["out"])
+@functools.lru_cache(maxsize=8)
+def _causal_bias(n: int, device: torch.device) -> Tensor:
+    """(n, n) additive causal mask, -1e9 above the diagonal, made once per
+    length and device."""
+    return torch.full((n, n), -1e9, device=device).triu(1)
 
 
 def quick_gelu(x: Tensor) -> Tensor:
@@ -125,9 +113,10 @@ def apply_clip_text(params: Params, tokens: Tensor,
     n = tokens.shape[1]
     x = params["tok_emb"][tokens] + params["pos_emb"][None, :n]
     layers = params["layers"][:-1] if penultimate else params["layers"]
+    causal = _causal_bias(n, x.device)
     for lp in layers:
-        x = x + _causal_attention(layer_norm(x, lp["ln1"]), lp["attn"],
-                                  cfg.heads)
+        h = layer_norm(x, lp["ln1"])
+        x = x + project_attention(h, h, h, lp["attn"], cfg.heads, causal)
         x = x + linear(act(linear(layer_norm(x, lp["ln2"]), lp["fc1"])),
                        lp["fc2"])
     if penultimate:

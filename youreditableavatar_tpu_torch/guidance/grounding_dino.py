@@ -45,7 +45,10 @@ from torch import Tensor
 from youreditableavatar_tpu_torch.guidance.sd_layers import (
     _randn,
     _zeros,
+    attention,
     conv2d,
+    layer_norm_affine,
+    linear,
     params_from_numpy,
     t2t,
     tree_to,
@@ -118,14 +121,8 @@ def _ln_init(gen, d) -> Params:
     return {"g": torch.ones((d,), device=gen.device), "b": _zeros(gen, (d,))}
 
 
-def _apply_ln(x, p, eps=1e-5):
-    m = x.mean(-1, keepdim=True)
-    v = ((x - m) ** 2).mean(-1, keepdim=True)
-    return (x - m) * torch.rsqrt(v + eps) * p["g"] + p["b"]
-
-
-def _apply_linear(x, p):
-    return torch.matmul(x, p["w"]) + p["b"]
+def _apply_ln(x, p):
+    return layer_norm_affine(x, p["g"], p["b"])
 
 
 def _mha_init(gen, d) -> Params:
@@ -133,24 +130,10 @@ def _mha_init(gen, d) -> Params:
             "v": _linear(gen, d, d), "o": _linear(gen, d, d)}
 
 
-def _mha(q_in, k_in, v_in, p, h, mask=None):
-    """Dense multi-head attention over (..., L, D); `mask` (..., Q, K)
-    additive."""
-    q = _apply_linear(q_in, p["q"])
-    k = _apply_linear(k_in, p["k"])
-    v = _apply_linear(v_in, p["v"])
-
-    def split(x):
-        return x.reshape(*x.shape[:-1], h, -1).transpose(-3, -2)
-
-    qh, kh, vh = split(q), split(k), split(v)
-    att = torch.matmul(qh, kh.transpose(-1, -2)) / np.sqrt(qh.shape[-1])
-    if mask is not None:
-        att = att + mask
-    att = torch.softmax(att, dim=-1)
-    out = torch.matmul(att, vh).transpose(-3, -2)
-    out = out.reshape(*out.shape[:-2], -1)
-    return _apply_linear(out, p["o"])
+def _attend(q, k, v, p, h, bias=None):
+    """q / k / v projected, attended (`bias` additive), projected back."""
+    return linear(attention(linear(q, p["q"]), linear(k, p["k"]),
+                            linear(v, p["v"]), h, bias), p["o"])
 
 
 def _mlp_init(gen, d, hidden, dout=None) -> Params:
@@ -164,7 +147,7 @@ def _gelu_exact(x):
 
 
 def _mlp(x, p, act=_gelu_exact):
-    return _apply_linear(act(_apply_linear(x, p["fc1"])), p["fc2"])
+    return linear(act(linear(x, p["fc1"])), p["fc2"])
 
 
 def _text_mask(token_mask: Tensor, dtype) -> Tensor:
@@ -265,7 +248,7 @@ def _swin_block(x, p, heads, window, shift):
         mask = bias + amask[:, None]
     else:
         mask = bias
-    wins = _mha(wins, wins, wins, p["attn"], heads, mask=mask)
+    wins = _attend(wins, wins, wins, p["attn"], heads, mask)
     x = _window_merge(wins, h, wd, window)
     if shift:
         x = torch.roll(x, (shift, shift), dims=(0, 1))
@@ -336,8 +319,7 @@ def swin_backbone(p: Params, image: Tensor, cfg: GDINOConfig) -> List[Tensor]:
             # channels in that order.
             x = torch.cat([x[0::2, 0::2], x[1::2, 0::2], x[0::2, 1::2],
                            x[1::2, 1::2]], dim=-1)
-            x = torch.matmul(_apply_ln(x, stage["merge_norm"]),
-                             stage["merge"]["w"])
+            x = linear(_apply_ln(x, stage["merge_norm"]), stage["merge"])
     return outs
 
 
@@ -374,7 +356,7 @@ def bert_encode(p: Params, tokens: Tensor, attn_mask: Tensor,
     add = _text_mask(attn_mask, x.dtype)
     for layer in p["layers"]:
         # Post-LN residual blocks (BERT convention).
-        x = _apply_ln(x + _mha(x, x, x, layer["attn"], heads, mask=add),
+        x = _apply_ln(x + _attend(x, x, x, layer["attn"], heads, add),
                       layer["attn_norm"])
         x = _apply_ln(x + _mlp(x, layer["mlp"]), layer["mlp_norm"])
     return x
@@ -446,10 +428,10 @@ def _ms_deform_attn(query, ref_xy, value_flat, shapes, p, h, pt, ref_wh):
     lv = len(shapes)
     q, d = query.shape
     dh = d // h
-    off = _apply_linear(query, p["sampling"]).reshape(q, h, lv, pt, 2)
-    aw = _apply_linear(query, p["attn_w"]).reshape(q, h, lv * pt)
+    off = linear(query, p["sampling"]).reshape(q, h, lv, pt, 2)
+    aw = linear(query, p["attn_w"]).reshape(q, h, lv * pt)
     aw = torch.softmax(aw, dim=-1).reshape(q, h, lv, pt)
-    val = _apply_linear(value_flat, p["value"]).reshape(-1, h, dh)
+    val = linear(value_flat, p["value"]).reshape(-1, h, dh)
 
     out = torch.zeros((q, h, dh), dtype=query.dtype, device=query.device)
     start = 0
@@ -466,7 +448,7 @@ def _ms_deform_attn(query, ref_xy, value_flat, shapes, p, h, pt, ref_wh):
                   + off[:, :, li] / pt * ref_wh[:, None, None, :] * 0.5)
         s = _bilinear_sample_heads(lvl, xy)  # (Q, h, pt, dh)
         out = out + torch.sum(s * aw[:, :, li, :, None], dim=2)
-    return _apply_linear(out.reshape(q, d), p["output"])
+    return linear(out.reshape(q, d), p["output"])
 
 
 # ---------------------------------------------------------------------------
@@ -495,10 +477,10 @@ def _bi_attention(img, txt, txt_mask, p, h):
     softmaxed both ways, layer-scale-gated residuals."""
     vi = _apply_ln(img, p["ln_v"])
     ti = _apply_ln(txt, p["ln_t"])
-    qv = _apply_linear(vi, p["v_proj"])
-    qt = _apply_linear(ti, p["t_proj"])
-    vv = _apply_linear(vi, p["values_v"])
-    vt = _apply_linear(ti, p["values_t"])
+    qv = linear(vi, p["v_proj"])
+    qt = linear(ti, p["t_proj"])
+    vv = linear(vi, p["values_v"])
+    vt = linear(ti, p["values_t"])
 
     def split(x):
         return x.reshape(x.shape[0], h, -1).transpose(0, 1)
@@ -510,8 +492,8 @@ def _bi_attention(img, txt, txt_mask, p, h):
     a_t2v = torch.softmax(sim.transpose(-1, -2), dim=-1)
     dv = torch.matmul(a_v2t, vth).transpose(0, 1).reshape(img.shape[0], -1)
     dt = torch.matmul(a_t2v, vvh).transpose(0, 1).reshape(txt.shape[0], -1)
-    img = img + p["gamma_v"] * _apply_linear(dv, p["out_v"])
-    txt = txt + p["gamma_t"] * _apply_linear(dt, p["out_t"])
+    img = img + p["gamma_v"] * linear(dv, p["out_v"])
+    txt = txt + p["gamma_t"] * linear(dt, p["out_t"])
     return img, txt
 
 
@@ -550,9 +532,9 @@ def _box_mlp_init(gen, d) -> Params:
 
 
 def _box_mlp(x, p):
-    x = F.relu(_apply_linear(x, p["l1"]))
-    x = F.relu(_apply_linear(x, p["l2"]))
-    return _apply_linear(x, p["l3"])
+    x = F.relu(linear(x, p["l1"]))
+    x = F.relu(linear(x, p["l2"]))
+    return linear(x, p["l3"])
 
 
 def _logit(x):
@@ -644,7 +626,7 @@ def gdino_ground(
 def _ground(params, image, tokens, token_mask, cfg):
     feats = swin_backbone(params["swin"], image, cfg)
     dt, dev = image.dtype, image.device
-    levels = [_apply_ln(_apply_linear(f, proj["lin"]), proj["norm"])
+    levels = [_apply_ln(linear(f, proj["lin"]), proj["norm"])
               for f, proj in zip(feats, params["in_proj"])]
     # Torch pads 1 on BOTH sides for the k=3 s=2 extra level.
     ex = conv2d(feats[-1][None], params["extra_proj"], stride=2,
@@ -670,15 +652,15 @@ def _ground(params, image, tokens, token_mask, cfg):
     pos_src = _sine_embed_2d(refs, cfg.dim) + params["level_emb"][lvl_idx]
 
     txt = bert_encode(params["bert"], tokens, token_mask, cfg.text_heads)
-    txt = _apply_linear(txt, params["feat_map"])  # (T, dim)
+    txt = linear(txt, params["feat_map"])  # (T, dim)
     add = _text_mask(token_mask, txt.dtype)
 
     for layer in params["enc"]:
         src, txt = _bi_attention(src, txt, token_mask, layer["bi"],
                                  cfg.heads)
         txt = _apply_ln(
-            txt + _mha(txt, txt, txt, layer["txt_attn"], cfg.heads,
-                       mask=add),
+            txt + _attend(txt, txt, txt, layer["txt_attn"], cfg.heads,
+                          add),
             layer["txt_norm"])
         txt = _apply_ln(txt + _mlp(txt, layer["txt_ffn"], F.relu),
                         layer["txt_ffn_norm"])
@@ -691,7 +673,7 @@ def _ground(params, image, tokens, token_mask, cfg):
                         layer["ffn_norm"])
 
     # Language-guided query selection: top-K tokens by largest text logit.
-    enc_mem = _apply_ln(_apply_linear(src, params["enc_out"]["lin"]),
+    enc_mem = _apply_ln(linear(src, params["enc_out"]["lin"]),
                         params["enc_out"]["norm"])
     logits = torch.matmul(enc_mem, txt.T)  # (S, T)
     logits = torch.where(token_mask[None, :], logits,
@@ -713,11 +695,11 @@ def _ground(params, image, tokens, token_mask, cfg):
         pos = _mlp(_sine_embed_boxes(ref_in, cfg.dim), params["ref_head"],
                    F.relu)
         qp = q + pos
-        q = _apply_ln(q + _mha(qp, qp, q, layer["self_attn"], cfg.heads),
+        q = _apply_ln(q + _attend(qp, qp, q, layer["self_attn"], cfg.heads),
                       layer["self_norm"])
         q = _apply_ln(
-            q + _mha(q + pos, txt, txt, layer["ca_text"], cfg.heads,
-                     mask=add),
+            q + _attend(q + pos, txt, txt, layer["ca_text"], cfg.heads,
+                        add),
             layer["ca_text_norm"])
         q = _apply_ln(
             q + ms_deform_attn(q + pos, ref_in[:, :2], src, shapes,

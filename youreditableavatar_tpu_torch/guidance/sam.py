@@ -34,7 +34,6 @@ the segmenter's host ↔ device bytes.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -46,6 +45,7 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     Params,
     _randn,
     _zeros,
+    attention,
     conv2d,
     init_linear,
     init_norm,
@@ -54,7 +54,7 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     linear_from_torch,
     norm_from_torch,
     params_from_numpy,
-    stats_dtype,
+    project_attention,
     t2t,
     tree_to,
 )
@@ -197,21 +197,6 @@ def _mlp3(x: Tensor, p) -> Tensor:
     return linear(x, p[2])
 
 
-def _attn(q, k, v, p, heads):
-    """SAM decoder attention with separate q/k/v projections."""
-    qq, kk, vv = linear(q, p["q"]), linear(k, p["k"]), linear(v, p["v"])
-    b, n, c = qq.shape
-    hd = c // heads
-    qq = qq.reshape(b, n, heads, hd).transpose(1, 2)
-    kk = kk.reshape(b, -1, heads, hd).transpose(1, 2)
-    vv = vv.reshape(b, -1, heads, hd).transpose(1, 2)
-    logits = torch.matmul(qq, kk.transpose(-1, -2)).to(
-        stats_dtype(q.dtype)) / math.sqrt(hd)
-    w = torch.softmax(logits, dim=-1).to(v.dtype)
-    o = torch.matmul(w, vv)
-    return linear(o.transpose(1, 2).reshape(b, n, c), p["out"])
-
-
 def _rel_pos_bias(size: int, rel: Tensor) -> Tensor:
     """Decomposed relative-position table lookup: (size, size, head_dim)."""
     coords = torch.arange(size, device=rel.device)
@@ -222,25 +207,21 @@ def _rel_pos_bias(size: int, rel: Tensor) -> Tensor:
 def _window_attention(x: Tensor, p: Params, heads: int) -> Tensor:
     """Attention over (B*, size, size, D) windows with the decomposed
     relative-position bias (segment-anything `Attention.forward` +
-    `add_decomposed_rel_pos`)."""
+    `add_decomposed_rel_pos`), passed to `attention` as one bias."""
     b, h, w, d = x.shape
     hd = d // heads
-    qkv = linear(x.reshape(b, h * w, d), p["qkv"])
-    qkv = qkv.reshape(b, h * w, 3, heads, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]  # (b, heads, hw, hd)
-    attn = torch.matmul(q, k.transpose(-1, -2)).to(
-        stats_dtype(x.dtype)) / math.sqrt(hd)
-    rh = _rel_pos_bias(h, p["rel_h"])  # (h, h, hd)
-    rw = _rel_pos_bias(w, p["rel_w"])
-    qr = q.reshape(b, heads, h, w, hd)
-    bias_h = torch.einsum("bnhwd,hkd->bnhwk", qr, rh)
-    bias_w = torch.einsum("bnhwd,wkd->bnhwk", qr, rw)
-    attn = attn.reshape(b, heads, h, w, h, w)
-    attn = attn + bias_h[..., :, None] + bias_w[..., None, :]
-    attn = attn.reshape(b, heads, h * w, h * w)
-    wgt = torch.softmax(attn, dim=-1).to(x.dtype)
-    o = torch.matmul(wgt, v)
-    o = o.transpose(1, 2).reshape(b, h * w, d)
+    q, k, v = linear(x.reshape(b, h * w, d), p["qkv"]).chunk(3, dim=-1)
+    qr = q.reshape(b, h, w, heads, hd).permute(0, 3, 1, 2, 4)
+    bias_h = torch.einsum("bnhwd,hkd->bnhwk", qr,
+                          _rel_pos_bias(h, p["rel_h"]))
+    bias_w = torch.einsum("bnhwd,wkd->bnhwk", qr,
+                          _rel_pos_bias(w, p["rel_w"]))
+    # The sum is written into a contiguous (b, heads, h, w, h, w): left to
+    # itself the broadcast add takes the einsums' permuted layout, and the
+    # reshape to (b, heads, hw, hw) copies it (1 GB a global block).
+    bias = x.new_empty((b, heads, h, w, h, w))
+    torch.add(bias_h[..., :, None], bias_w[..., None, :], out=bias)
+    o = attention(q, k, v, heads, bias.reshape(b, heads, h * w, h * w))
     return linear(o, p["proj"]).reshape(b, h, w, d)
 
 
@@ -354,27 +335,29 @@ def _decode_masks(params: Params, image_embed: Tensor, prompt_tokens: Tensor,
     src = image_embed.reshape(b, g * g, d) + params["prompt"]["no_mask"]
     pos = sam_dense_pe(params, g).reshape(1, g * g, d)
     q = tokens
-    heads = cfg.decoder_heads
+
+    def attend(xq, xk, xv, p):
+        return project_attention(xq, xk, xv, p, cfg.decoder_heads)
+
     for i, lp in enumerate(dec["layers"]):
         if i == 0:
             # skip_first_layer_pe: the first self-attention REPLACES the
             # queries (no PE add, no residual) before norm1.
-            q = layer_norm_dec(_attn(q, q, q, lp["self_attn"], heads),
-                               lp["ln1"])
+            q = layer_norm_dec(attend(q, q, q, lp["self_attn"]), lp["ln1"])
         else:
             qq = q + tokens
-            q = layer_norm_dec(q + _attn(qq, qq, q, lp["self_attn"], heads),
+            q = layer_norm_dec(q + attend(qq, qq, q, lp["self_attn"]),
                                lp["ln1"])
         q = layer_norm_dec(
-            q + _attn(q + tokens, src + pos, src, lp["cross_t2i"], heads),
+            q + attend(q + tokens, src + pos, src, lp["cross_t2i"]),
             lp["ln2"])
         q = layer_norm_dec(
             q + linear(F.relu(linear(q, lp["fc1"])), lp["fc2"]), lp["ln3"])
         src = layer_norm_dec(
-            src + _attn(src + pos, q + tokens, q, lp["cross_i2t"], heads),
+            src + attend(src + pos, q + tokens, q, lp["cross_i2t"]),
             lp["ln4"])
     q = layer_norm_dec(
-        q + _attn(q + tokens, src + pos, src, dec["final_attn"], heads),
+        q + attend(q + tokens, src + pos, src, dec["final_attn"]),
         dec["norm_final"])
 
     iou_out = q[:, 0]

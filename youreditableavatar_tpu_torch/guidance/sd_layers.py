@@ -12,7 +12,9 @@ The JAX version spells the convolution as shifted matmuls because the
 TPU's conv lowering is slow; here a CUDA tensor runs the hand-written f32
 implicit GEMM K7 (`ops/conv_cuda.py`, FFMA only, in one fixed summation
 order) on the same layouts, and a CPU tensor `F.conv2d`. Attention is two
-matmuls with the logits and the softmax in f32. Keep TF32 off on the card
+matmuls with the logits and the softmax in f32. `linear`, `layer_norm`
+and `attention` are also CLIP's, SAM's and GroundingDINO's: each dense
+primitive of the guidance networks exists once. Keep TF32 off on the card
 (`torch.backends.cuda.matmul.allow_tf32 = False`, as `chip_smoke.py`
 sets) so the networks compute in f32 as the JAX package's do.
 
@@ -108,12 +110,20 @@ def group_norm(x: Tensor, p: Params, groups: int = 32,
 
 
 def layer_norm(x: Tensor, p: Params, eps: float = 1e-5) -> Tensor:
+    return layer_norm_affine(x, p["scale"], p["bias"], eps)
+
+
+def layer_norm_affine(x: Tensor, scale: Tensor, bias: Tensor,
+                      eps: float = 1e-5) -> Tensor:
+    """LayerNorm over the last axis (statistics in f32 at least), then
+    `· scale + bias`, for trees that name the two otherwise (GroundingDINO's
+    `g` / `b`)."""
     orig = x.dtype
     x = x.to(stats_dtype(orig))
     mean = x.mean(dim=-1, keepdim=True)
     var = ((x - mean) ** 2).mean(dim=-1, keepdim=True)
     x = (x - mean) * torch.rsqrt(var + eps)
-    return (x * p["scale"] + p["bias"]).to(orig)
+    return (x * scale + bias).to(orig)
 
 
 def timestep_embedding(t: Tensor, dim: int, max_period: float = 10000.0,
@@ -128,21 +138,35 @@ def timestep_embedding(t: Tensor, dim: int, max_period: float = 10000.0,
     return torch.cat([cos, sin] if flip else [sin, cos], dim=-1)
 
 
-def attention(q: Tensor, k: Tensor, v: Tensor, heads: int) -> Tensor:
+def attention(q: Tensor, k: Tensor, v: Tensor, heads: int,
+              bias: Optional[Tensor] = None) -> Tensor:
     """Multi-head attention; logits and softmax in f32 (at least).
 
-    q: (B, Lq, D); k/v: (B, Lk, D) → (B, Lq, D).
+    q: (..., Lq, D); k/v: (..., Lk, D) → (..., Lq, D), any leading dims.
+    `bias` is added to the scaled logits and broadcasts to their
+    (..., heads, Lq, Lk): a mask (-1e9 where a key is hidden) or a
+    relative-position bias.
     """
-    b, lq, d = q.shape
+    *lead, lq, d = q.shape
     dh = d // heads
-    qh = q.reshape(b, lq, heads, dh).transpose(1, 2)
-    kh = k.reshape(b, -1, heads, dh).transpose(1, 2)
-    vh = v.reshape(b, -1, heads, dh).transpose(1, 2)
+    qh = q.reshape(*lead, lq, heads, dh).transpose(-3, -2)
+    kh = k.reshape(*k.shape[:-1], heads, dh).transpose(-3, -2)
+    vh = v.reshape(*v.shape[:-1], heads, dh).transpose(-3, -2)
     logits = torch.matmul(qh, kh.transpose(-1, -2)).to(
         stats_dtype(q.dtype)) / math.sqrt(dh)
+    if bias is not None:
+        logits = logits + bias
     w = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.matmul(w, vh)
-    return out.transpose(1, 2).reshape(b, lq, d)
+    return out.transpose(-3, -2).reshape(*lead, lq, d)
+
+
+def project_attention(xq: Tensor, xk: Tensor, xv: Tensor, p: Params,
+                      heads: int, bias: Optional[Tensor] = None) -> Tensor:
+    """`attention` between projections: `p`'s "q" / "k" / "v" linears on
+    the three inputs, its "out" linear on the result."""
+    return linear(attention(linear(xq, p["q"]), linear(xk, p["k"]),
+                            linear(xv, p["v"]), heads, bias), p["out"])
 
 
 # ------------------------------------------------------------------- blocks
@@ -164,16 +188,9 @@ def transformer_block(x: Tensor, ctx: Tensor, p: Params, heads: int) -> Tensor:
     """LN→self-attn → LN→cross-attn → LN→GEGLU-FF, all residual (diffusers
     `BasicTransformerBlock`)."""
     h = layer_norm(x, p["norm1"])
-    a1 = p["attn1"]
-    h = attention(linear(h, a1["q"]), linear(h, a1["k"]),
-                  linear(h, a1["v"]), heads)
-    x = x + linear(h, a1["out"])
-
+    x = x + project_attention(h, h, h, p["attn1"], heads)
     h = layer_norm(x, p["norm2"])
-    a2 = p["attn2"]
-    h = attention(linear(h, a2["q"]), linear(ctx, a2["k"]),
-                  linear(ctx, a2["v"]), heads)
-    x = x + linear(h, a2["out"])
+    x = x + project_attention(h, ctx, ctx, p["attn2"], heads)
 
     h = layer_norm(x, p["norm3"])
     ha, hb = linear(h, p["ff1"]).chunk(2, dim=-1)
@@ -200,9 +217,7 @@ def self_attention_2d(x: Tensor, p: Params, groups: int = 32,
     block)."""
     b, h_, w_, c = x.shape
     y = group_norm(x, p["norm"], groups, eps).reshape(b, h_ * w_, c)
-    out = attention(linear(y, p["q"]), linear(y, p["k"]),
-                    linear(y, p["v"]), heads=1)
-    return x + linear(out, p["out"]).reshape(b, h_, w_, c)
+    return x + project_attention(y, y, y, p, heads=1).reshape(b, h_, w_, c)
 
 
 # ------------------------------------------------------------------ inits

@@ -33,7 +33,6 @@ from torch import Tensor
 from youreditableavatar_tpu_torch.guidance.clip_text import quick_gelu
 from youreditableavatar_tpu_torch.guidance.sd_layers import (
     Params,
-    attention,
     conv2d,
     conv_from_torch,
     init_conv,
@@ -46,6 +45,7 @@ from youreditableavatar_tpu_torch.guidance.sd_layers import (
     linear_from_torch,
     norm_from_torch,
     params_from_numpy,
+    project_attention,
     resnet_block,
     spatial_transformer,
     t2t,
@@ -182,10 +182,7 @@ def _cond_embed(p: Params, img: Tensor) -> Tensor:
 def _fuser_block(x: Tensor, p: Params, heads: int) -> Tensor:
     """Pre-LN residual attention block (CLIP-style, as the union fuser)."""
     h = layer_norm(x, p["ln1"])
-    a = p["attn"]
-    h = attention(linear(h, a["q"]), linear(h, a["k"]), linear(h, a["v"]),
-                  heads)
-    x = x + linear(h, a["out"])
+    x = x + project_attention(h, h, h, p["attn"], heads)
     h = layer_norm(x, p["ln2"])
     return x + linear(quick_gelu(linear(h, p["fc1"])), p["fc2"])
 
