@@ -1435,8 +1435,10 @@ def check_conv(dev):
     """K7 at CONV_SHAPES: forward and input gradient against f64 (cuDNN's
     `F.conv2d` through `sd_layers.conv2d_plain`), each within
     CONV_ERR_OF_CUDNN of cuDNN-f32's own error, two launches bit-equal;
-    timed beside its plain decomposition and cuDNN in f32. Then the
-    split-K pass alone against its plain, in-order sum, bit for bit."""
+    timed beside its plain decomposition and cuDNN in f32, with the share
+    of the row's launches the warp-specialised kernel took. Each row
+    reports under the counter its launches went to. Then the split-K pass
+    alone against its plain, in-order sum, bit for bit."""
     from youreditableavatar_tpu_torch import _kernels
     from youreditableavatar_tpu_torch.guidance.sd_layers import conv2d_plain
     from youreditableavatar_tpu_torch.ops import conv_cuda as cc
@@ -1458,9 +1460,11 @@ def check_conv(dev):
         w = torch.randn(w_shape, generator=g, device=dev) / (
             w_shape[0] * w_shape[1] * w_shape[2]) ** 0.5
         b = torch.randn((w_shape[3],), generator=g, device=dev) * 0.1
+        before = dict(_kernels.LAUNCHES)
         with torch.no_grad():
             y = cc.conv2d_forward(x, w, b, stride, pads)
             same_f = torch.equal(y, cc.conv2d_forward(x, w, b, stride, pads))
+            mid = dict(_kernels.LAUNCHES)
             ref = conv2d_plain(x.double(), w.double(), b.double(), stride,
                                pads)
             fwd = (err(y, ref), err(conv2d_plain(x, w, b, stride, pads), ref))
@@ -1468,6 +1472,15 @@ def check_conv(dev):
         dx = cc.conv2d_input_grad(dy, w, x_shape, stride, pads)
         same_d = torch.equal(dx, cc.conv2d_input_grad(dy, w, x_shape, stride,
                                                       pads))
+        after = dict(_kernels.LAUNCHES)
+        # Per direction: the counter its launches went to, and the share of
+        # them that were the warp-specialised kernel's.
+        ran = {}
+        for name, (a, z) in (("forward", (before, mid)),
+                             ("input_grad", (mid, after))):
+            old, new = f"conv_{name}", f"conv_{name}_ws"
+            n_old, n_new = z[old] - a[old], z[new] - a[new]
+            ran[name] = (new if n_new else old, n_new / (n_old + n_new))
         cudnn_d = input_grad(dy, w, x_shape, stride, pads)
         ref = input_grad(dy.double(), w.double(), x_shape, stride, pads)()
         bwd = (err(dx, ref), err(cudnn_d(), ref))
@@ -1490,19 +1503,20 @@ def check_conv(dev):
         for name, (ek, e32), same in (("forward", fwd, same_f),
                                       ("input_grad", bwd, same_d)):
             ms, plain_ms, lib_ms = t[name]
-            print(f"  conv_{name}, {what}: x {x_shape} w {w_shape} stride "
+            counter, ws_share = ran[name]
+            print(f"  {counter}, {what}: x {x_shape} w {w_shape} stride "
                   f"{stride} pads {pads}: max |K7 - f64| {ek:.3e}, cuDNN f32 "
                   f"{e32:.3e} (ratio {ek / e32 if e32 else float('inf'):.3f}, limit "
                   f"{CONV_ERR_OF_CUDNN}); two launches bit-equal {same}; "
                   f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TFLOP/s, "
                   f"{bnd[0] / ms:.3f} of the bound {bnd[0]:.4f} ms by "
                   f"{bnd[1]}); plain {plain_ms:.3f} ms; cuDNN f32 "
-                  f"{lib_ms:.4f} ms")
+                  f"{lib_ms:.4f} ms; warp-specialised share {ws_share:.2f}")
             if not (ek <= CONV_ERR_OF_CUDNN * e32 and same):
                 raise AssertionError(f"conv_{name} at {what}: {ek:.3e} "
                                      f"against cuDNN f32's {e32:.3e}, "
                                      f"bit-equal {same}")
-            row = rows.setdefault(f"conv_{name}", dict(
+            row = rows.setdefault(counter, dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound=bnd))
             row["max_abs_err"] = max(row["max_abs_err"], ek)
@@ -2685,7 +2699,8 @@ def phase_sd15(dev, kernels):
             times.append((time.perf_counter() - t0) * 1e3)
         launches = {k: kernels.LAUNCHES[k]
                     for k in ("hash_scatter", "mesh_resolve", "conv_forward",
-                              "conv_input_grad", "conv_reduce")}
+                              "conv_input_grad", "conv_forward_ws",
+                              "conv_input_grad_ws", "conv_reduce")}
         peak = torch.cuda.max_memory_allocated() / 2**30
         moved = float((trainer.params.grid.detach()
                        - trainer.frozen_params.grid).abs().sum())
@@ -2711,9 +2726,10 @@ def phase_sd15(dev, kernels):
             raise AssertionError(f"the {mode} edit did not move the field")
         if launches["hash_scatter"] != K4_PER_EDIT_STEP * SD_STEPS:
             raise AssertionError("hash_scatter did not launch 3 times a step")
-        if mode == "sds" and not (launches["conv_forward"]
-                                  and launches["conv_input_grad"]):
-            raise AssertionError("the networks' convolutions did not run K7")
+        if mode == "sds" and not (launches["conv_forward_ws"]
+                                  and launches["conv_input_grad_ws"]):
+            raise AssertionError("the networks' convolutions did not run "
+                                 "K7's warp-specialised kernel")
         if mode == "du" and refreshes != list(range(0, SD_STEPS, DU_PER_EDIT)):
             raise AssertionError(f"refreshes at steps {refreshes}")
         if mode == "sds":
@@ -3520,7 +3536,8 @@ SOURCES = {
     # No Pallas kernel: K7 replaces the JAX package's shifted matmuls.
     **{name: ("youreditableavatar_tpu_torch/csrc/conv.cu",
               "youreditableavatar_tpu/guidance/sd_layers.py:40")
-       for name in ("conv_forward", "conv_input_grad", "conv_reduce")},
+       for name in ("conv_forward", "conv_input_grad", "conv_forward_ws",
+                    "conv_input_grad_ws", "conv_reduce")},
 }
 
 
@@ -3619,7 +3636,8 @@ def main(argv) -> int:
     # Each kernel's launches come from the run of its own main path.
     main_path = {"mesh_resolve": "edit", "hash_scatter": "spatial",
                  "composite_backward_pairs": "sharded", "conv_forward": "sd15",
-                 "conv_input_grad": "sd15", "conv_reduce": "sd15"}
+                 "conv_input_grad": "sd15", "conv_forward_ws": "sd15",
+                 "conv_input_grad_ws": "sd15", "conv_reduce": "sd15"}
 
     kernels = []
     for name in _kernels.KERNEL_NAMES if "kernels" in results else ():

@@ -9,13 +9,19 @@ transposed taps and its stride-s phase split) against `F.conv2d` and
 `torch.autograd` in f64, `sd_layers.conv2d`'s CPU path against its
 `F.conv2d` code, and the wrapper's refusals.
 
+On the CPU, too, `plan`'s choice of kernel at each of `chip_smoke`'s
+CONV_SHAPES: the warp-specialised kernel for the 16-byte shapes, not for
+3 or 4 reduction channels nor for at most 8 outputs.
+
 On the card, each distinct convolution the three benchmark cells run
 (recorded from one step or call of each) is held, forward and input
 gradient, against an f64 convolution of the same inputs: K7's largest
 error at most twice cuDNN-f32's own at that shape, cuDNN in TF32 (the
-negative control) above that bound, two runs bit-identical. One test
-captures K7 into a CUDA graph; one holds a tiny SD1.5 step's routing (no
-cuDNN convolution kernel, launches one for one with the calls).
+negative control) above that bound, two runs bit-identical, each launch
+counted under its kernel's name. One test captures K7 into a CUDA graph;
+one holds the SDS step's split of launches between the kernels; one a
+tiny SD1.5 step's routing (no cuDNN convolution kernel, launches one for
+one with the calls).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from chip_smoke import CONV_SHAPES
 from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 from youreditableavatar_tpu_torch import _kernels
 from youreditableavatar_tpu_torch.guidance import sd_layers
@@ -243,6 +250,59 @@ def test_plan_takes_a_warp_a_pixel_for_narrow_outputs(m, n, k):
     assert conv_cuda.plan(m, 16, k, 132)[0] in (0, 1)
 
 
+def _expected_kernel(c, n):
+    """The kernel a call with `c` reduction and `n` output channels takes,
+    spelled out: at most 8 outputs a warp a pixel; reduction channels that
+    are not whole 32-wide K tiles (3, 4, 8, 16) the tiled loop; the 16-byte
+    shapes the warp-specialised one."""
+    if n <= 8:
+        return "small_n"
+    if c % 32:
+        return "tiled"
+    return "ws"
+
+
+@pytest.mark.parametrize(
+    "row", CONV_SHAPES,
+    ids=[f"{i}-{'x'.join(map(str, r[2]))}s{r[3]}"
+         for i, r in enumerate(CONV_SHAPES)])
+def test_plan_takes_the_warp_specialised_kernel_for_16_byte_shapes(row):
+    _, x_shape, w_shape, stride, pads = row
+    _, _, cin, cout = w_shape
+    for dgrad, c, n in ((False, cin, cout), (True, cout, cin)):
+        want = _expected_kernel(c, n)
+        assert conv_cuda.kernel_of(c, n) == want
+        launches = conv_cuda.call_plan(x_shape, w_shape, stride, pads, dgrad,
+                                       132)
+        assert [launch[0] for launch in launches] == [want] * len(launches)
+        for kernel, tile, splits, grid, prm, m in launches:
+            # The tile shape and split-K stay `plan`'s, whichever kernel.
+            assert (tile == 2) == (want == "small_n")
+            assert prm.splits == splits
+            assert grid[2] % splits == 0
+        assert conv_cuda.COUNTERS[want][int(dgrad)].startswith(
+            "conv_input_grad" if dgrad else "conv_forward")
+        assert conv_cuda.COUNTERS[want][int(dgrad)].endswith("_ws") == (
+            want == "ws")
+
+
+def test_n_major_copy_is_kept_per_live_unchanged_weight():
+    """The warp-specialised K7d's (R, S, Cout, Cin) weight copy: made once
+    per weight, made again after an in-place change, dropped with the
+    weight."""
+    w = torch.randn((3, 3, 8, 16))
+    first = conv_cuda.n_major(w)
+    assert torch.equal(first, w.permute(0, 1, 3, 2))
+    assert first.is_contiguous() and conv_cuda.n_major(w) is first
+    w.mul_(2.0)
+    again = conv_cuda.n_major(w)
+    assert again is not first and torch.equal(again, w.permute(0, 1, 3, 2))
+    key = id(w)
+    del w
+    gc.collect()
+    assert key not in conv_cuda._N_MAJOR
+
+
 # ------------------------------------------------------------------- card
 
 
@@ -375,12 +435,26 @@ def cell_convolutions(tmp_path_factory):
 def test_sds_step_runs_k7_once_a_call(cell_convolutions):
     """The SDS step: one K7f launch a convolution (the UNet's CFG pair is
     one batch-2 call), one K7d launch a convolution the backward crosses
-    (the VAE encoder's), and none left to cuDNN."""
+    (the VAE encoder's), and none left to cuDNN; the warp-specialised
+    kernel takes every call but those of 3, 4 or 8 reduction channels (the
+    conv_in layers forward, the VAE's conv_out backward) and those of at
+    most 8 outputs (a warp a pixel): 121 of 126 forward calls and 25 of 28
+    input gradients on the H100."""
     calls, launched = cell_convolutions["sds_step"]
     backward = [c for c in calls if c[5]]
     assert backward and len(backward) < len(calls)
-    assert launched["conv_forward"] == len(calls)
-    assert launched["conv_input_grad"] == len(backward)
+    assert (launched["conv_forward"] + launched["conv_forward_ws"]
+            == len(calls))
+    assert (launched["conv_input_grad"] + launched["conv_input_grad_ws"]
+            == len(backward))
+    ws_f = sum(1 for c in calls
+               if _expected_kernel(c[1][2], c[1][3]) == "ws")
+    ws_d = sum(1 for c in backward
+               if _expected_kernel(c[1][3], c[1][2]) == "ws")
+    print(f"SDS step: {len(calls)} forward calls, {ws_f} warp-specialised; "
+          f"{len(backward)} input gradients, {ws_d} warp-specialised")
+    assert launched["conv_forward_ws"] == ws_f > 0
+    assert launched["conv_input_grad_ws"] == ws_d > 0
     # The UNet runs without gradient, at CFG batch 2; the VAE encoder with.
     assert {c[0][0] for c in calls if not c[5]} == {2}
 
@@ -397,6 +471,7 @@ def test_k7_against_f64_at_each_cell_shape(cell, cell_convolutions,
     encoder): at some forward-only shapes (dX of 4 channels) cuDNN's
     TF32 setting picks no TF32 kernel, and the control reads f32."""
     failures = []
+    ws_launches = 0
     shapes = {}
     for x_shape, w_shape, stride, pads, bias, grad in cell_convolutions[cell]:
         key = (x_shape, w_shape, stride, pads)
@@ -410,6 +485,11 @@ def test_k7_against_f64_at_each_cell_shape(cell, cell_convolutions,
             w_shape[0] * w_shape[1] * w_shape[2]) ** 0.5
         b = (torch.randn((w_shape[3],), generator=g, device=cuda_device)
              * 0.1 if bias else None)
+        c_in, c_out = w_shape[2], w_shape[3]
+        counters = (
+            conv_cuda.COUNTERS[_expected_kernel(c_in, c_out)][0],
+            conv_cuda.COUNTERS[_expected_kernel(c_out, c_in)][1])
+        before = dict(_kernels.LAUNCHES)
         with torch.no_grad():
             y = conv_cuda.conv2d_forward(x, w, b, stride, pads)
             again = conv_cuda.conv2d_forward(x, w, b, stride, pads)
@@ -424,6 +504,11 @@ def test_k7_against_f64_at_each_cell_shape(cell, cell_convolutions,
         dy = torch.randn(y.shape, generator=g, device=cuda_device)
         dx = conv_cuda.conv2d_input_grad(dy, w, x_shape, stride, pads)
         dx2 = conv_cuda.conv2d_input_grad(dy, w, x_shape, stride, pads)
+        for name in counters:  # each launch under its kernel's counter
+            ran = _kernels.LAUNCHES[name] - before[name]
+            if ran < 2:
+                failures.append(f"x{x_shape} w{w_shape}: {name} ran {ran}×")
+            ws_launches += ran if name.endswith("_ws") else 0
         ref = _cudnn_input_grad(x_shape, dy.double(), w.double(), stride, pads)
         with _cudnn_tf32(False):
             d32 = _max_err(_cudnn_input_grad(x_shape, dy, w, stride, pads), ref)
@@ -445,6 +530,7 @@ def test_k7_against_f64_at_each_cell_shape(cell, cell_convolutions,
         _free()
     assert shapes
     assert not failures, "\n".join(failures)
+    assert ws_launches > 0  # the cell's 16-byte shapes ran the new kernel
 
 
 @pytest.mark.cuda
@@ -459,6 +545,7 @@ def test_k7_records_into_a_cuda_graph(geometry, cuda_device):
     dy = torch.randn_like(y)
     dx = conv_cuda.conv2d_input_grad(dy, w, x.shape, stride, pads)
     torch.cuda.synchronize()
+    before = dict(_kernels.LAUNCHES)
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -467,6 +554,10 @@ def test_k7_records_into_a_cuda_graph(geometry, cuda_device):
             gy = conv_cuda.conv2d_forward(x, w, b, stride, pads)
             gdx = conv_cuda.conv2d_input_grad(dy, w, x.shape, stride, pads)
     torch.cuda.current_stream().wait_stream(side)
+    # Both captured launches were the warp-specialised kernel's.
+    assert _kernels.LAUNCHES["conv_forward_ws"] == before["conv_forward_ws"] + 1
+    assert (_kernels.LAUNCHES["conv_input_grad_ws"]
+            == before["conv_input_grad_ws"] + 1)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(gy, y) and torch.equal(gdx, dx)
@@ -516,8 +607,9 @@ def test_tiny_sd15_step_has_no_cudnn_convolution(cuda_device, monkeypatch):
     assert not [n for n in names if _CUDNN_CONV.search(n)], names
     assert any(n.startswith("void (anonymous namespace)::conv_kernel")
                for n in names), names
-    assert _kernels.LAUNCHES["conv_forward"] - before["conv_forward"] \
+    launched = {k: _kernels.LAUNCHES[k] - before[k] for k in before}
+    assert launched["conv_forward"] + launched["conv_forward_ws"] \
         == len(rec.calls)
-    assert _kernels.LAUNCHES["conv_input_grad"] - before["conv_input_grad"] \
+    assert launched["conv_input_grad"] + launched["conv_input_grad_ws"] \
         == sum(1 for c in rec.calls if c[5]) > 0
     assert bool(torch.isfinite(grad).all())

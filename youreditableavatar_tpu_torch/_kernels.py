@@ -60,6 +60,8 @@ KERNEL_NAMES = (
     "hash_scatter",
     "conv_forward",
     "conv_input_grad",
+    "conv_forward_ws",
+    "conv_input_grad_ws",
     "conv_reduce",
 )
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -4,7 +4,9 @@ No Pallas kernel stands behind this one: the JAX package spells the
 guidance networks' convolutions as shifted matmuls for XLA
 (`youreditableavatar_tpu/guidance/sd_layers.py`). On CUDA tensors
 `sd_layers.conv2d` runs `csrc/conv.cu`, an implicit GEMM on FFMA in one
-fixed summation order:
+fixed summation order (each 32-wide K tile's products in one FFMA chain in
+ascending k, tap-major, then the tiles in order, the split-K partials in
+split order, the bias last):
 
 - K7f, `conv2d_forward`: output pixels × Cout over R·S·Cin, the activation
   gathered in place (padding and stride in the index arithmetic), the HWIO
@@ -13,8 +15,26 @@ fixed summation order:
   Cout as the reduction axis; a stride-s convolution splits dX by output
   parity into s² sub-problems (`input_grad_subs`), each a stride-1 gather
   with its own taps, four to a launch.
-- At most `SMALL_N` output channels take a warp an output pixel instead
-  of a tile (conv_in's input gradient, the conv_out and quant layers).
+- Which kernel runs a call follows from what it shows (`kernel_of`): at
+  most `SMALL_N` output channels take a warp an output pixel (conv_in's
+  input gradient, the conv_out and quant layers); reduction channels in
+  whole 32-wide K tiles and output columns a multiple of 4 the
+  warp-specialised kernel, `conv_ws_kernel` (every other convolution of the
+  networks but a few); the rest (3, 4, 8 or 16 reduction channels: the
+  conv_in layers, ControlNet's condition embedding) the tiled loop,
+  `conv_kernel`, which copies element by element.
+- The warp-specialised kernel: a producer warpgroup issues every copy of a
+  K tile (the weight tile by TMA, the gathered activation rows by 16-byte
+  cp.async) into a ring of 6 (128×128) or 4 (128×64) shared-memory stages,
+  signalled through `full` and `empty` mbarriers; the consumer warpgroups
+  only wait, read shared memory and run FFMA, with the registers
+  `setmaxnreg` takes from the producer (232 or 216 a thread against its
+  40). Same tiles, 8×8 register tile, BK and split-K as the tiled loop and
+  the same summation order, so the same bits. What bounds it is the FFMA
+  issue rate (67 TFLOP/s f32 on the H100); the producer takes the copies'
+  address arithmetic and issue slots off the FFMA warps. K7d reads the
+  weight's (R, S, Cout, Cin) copy (`n_major`, kept per frozen weight), so
+  its B is N-major like K7f's.
 
 The sub-problems are plain descriptors (`Sub`); `implicit_gemm_plain` runs
 the same descriptors in plain PyTorch, tap by tap, so the CPU tests hold
@@ -22,9 +42,9 @@ the index arithmetic the kernel uses against `torch.autograd`. On CPU
 tensors `sd_layers.conv2d` keeps its `F.conv2d` code.
 
 The wrapper picks the tile shape and a split-K factor from (M, N, K) and
-the card's SM count (`plan`); split-K's partial sums go to a workspace
-from `torch.empty` and a second kernel (`conv_reduce`) adds them in split
-order, then the bias. No atomics: a shape gives the same bits every run.
+the card's SM count (`plan`, the same for both tiled kernels); split-K's
+partial sums go to a workspace from `torch.empty` and a second kernel
+(`conv_reduce`) adds them in split order, then the bias. No atomics: a shape gives the same bits every run.
 The launch neither synchronises nor allocates outside `torch.empty`, so it
 records into a CUDA graph. No weight gradient exists on the card: the
 networks' weights are frozen, and `Conv2dK7` raises if one requires grad.
@@ -33,6 +53,7 @@ networks' weights are frozen, and `Conv2dK7` raises if one requires grad.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,6 +70,11 @@ MAX_SUBS = 4  # sub-problems in one launch
 # is a warp an output pixel, for N up to SMALL_N.
 TILES = ((128, 128), (128, 64), (8, 8))
 SMALL_N = 8
+# `kernel_of`'s names, and the launch counters (forward, input gradient)
+# each adds to.
+COUNTERS = {"ws": ("conv_forward_ws", "conv_input_grad_ws"),
+            "tiled": ("conv_forward", "conv_input_grad"),
+            "small_n": ("conv_forward", "conv_input_grad")}
 _INT_MAX = 2 ** 31 - 1
 
 
@@ -183,8 +209,8 @@ class _CParams(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in
                  ("a", "w", "bias", "out", "ws")]
                 + [(name, ctypes.c_int) for name in (
-                    "in_h", "in_w", "C", "stride", "N", "wS", "wCin", "wCout",
-                    "full_h", "full_w", "splits", "kps")]
+                    "in_h", "in_w", "C", "stride", "N", "wR", "wS", "wCin",
+                    "wCout", "full_h", "full_w", "splits", "kps")]
                 + [("sub", _CSub * MAX_SUBS)])
 
 
@@ -225,6 +251,20 @@ def plan(m: int, n: int, k: int, sms: int, single: bool = True
     return best[1], best[2], best[3]
 
 
+def kernel_of(c: int, n: int) -> str:
+    """The kernel (a key of `COUNTERS`) that runs a call with `c` reduction
+    channels (Cin forward, Cout for the input gradient) and `n` output
+    columns: a warp an output pixel for at most SMALL_N; the
+    warp-specialised kernel where each K tile lies in one tap as 16-byte
+    rows (`c` a multiple of BK) and the weight's rows are 16-byte for its
+    TMA copies (`n` a multiple of 4); else the tiled loop."""
+    if n <= SMALL_N:
+        return "small_n"
+    if c % BK == 0 and n % 4 == 0:
+        return "ws"
+    return "tiled"
+
+
 _SMS: Dict[int, int] = {}
 _PLANS: Dict[tuple, tuple] = {}
 
@@ -237,8 +277,10 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _make_plan(subs: List[Sub], c: int, n: int, sms: int) -> list:
-    """A call's launches, four sub-problems each: (tile, splits, grid, the
-    parameters without their pointers and sizes, rows of the split)."""
+    """A call's launches, four sub-problems each: (kernel, tile, splits,
+    grid, the parameters without their pointers and sizes, rows of the
+    split)."""
+    kernel = kernel_of(c, n)
     launches = []
     for i in range(0, len(subs), MAX_SUBS):
         group = subs[i:i + MAX_SUBS]
@@ -253,7 +295,31 @@ def _make_plan(subs: List[Sub], c: int, n: int, sms: int) -> list:
             for name, _ in _CSub._fields_:
                 setattr(prm.sub[j], name, getattr(sb, name))
         grid = (-(-m // bm), -(-n // bn), len(group) * splits)
-        launches.append((tile, splits, grid, prm, group[0].M))
+        launches.append((kernel, tile, splits, grid, prm, group[0].M))
+    return launches
+
+
+def call_plan(x_shape, w_shape, stride: int, pads: Pads, dgrad: bool,
+              sms: int) -> list:
+    """The launches of K7f (`dgrad` False) or K7d on the convolution of an
+    input of `x_shape` with an HWIO weight of `w_shape`."""
+    batch, h, wd, _ = (int(v) for v in x_shape)
+    kh, kw, cin, cout = (int(v) for v in w_shape)
+    if dgrad:
+        return _make_plan(input_grad_subs(batch, h, wd, kh, kw, stride, pads),
+                          cout, cin, sms)
+    return _make_plan(forward_subs(batch, h, wd, kh, kw, stride, pads), cin,
+                      cout, sms)
+
+
+def _launches(dgrad: bool, x_shape, w_shape, stride: int, pads: Pads,
+              device: torch.device) -> list:
+    key = (dgrad, tuple(x_shape), tuple(w_shape), stride, pads, device)
+    launches = _PLANS.get(key)
+    if launches is None:
+        launches = call_plan(x_shape, w_shape, stride, pads, dgrad,
+                             _sm_count(device))
+        _PLANS[key] = launches
     return launches
 
 
@@ -273,12 +339,13 @@ def _check_aligned(name: str, t: Tensor) -> None:
                          f"16-byte loads; pass a fresh tensor (.clone())")
 
 
-def _run(kernel: str, launches: list, a: Tensor, w: Tensor,
-         bias: Optional[Tensor], out: Tensor, dgrad: bool, vec: bool,
-         geometry: tuple) -> None:
+def _run(launches: list, a: Tensor, w: Tensor, bias: Optional[Tensor],
+         out: Tensor, dgrad: bool, geometry: tuple, w_shape) -> None:
+    """Launch a call's kernels; `w` is the HWIO weight of `w_shape`, or for
+    the warp-specialised K7d its (R, S, Cout, Cin) copy."""
     in_h, in_w, c, stride, n, full_h, full_w = geometry
-    kh, kw, cin, cout = w.shape
-    for tile, splits, grid, prm, m in launches:
+    kh, kw, cin, cout = w_shape
+    for kernel, tile, splits, grid, prm, m in launches:
         ws = None
         if splits > 1:
             if splits * m * n > _INT_MAX:
@@ -290,10 +357,11 @@ def _run(kernel: str, launches: list, a: Tensor, w: Tensor,
         prm.out = out.data_ptr()
         prm.ws = ws.data_ptr() if ws is not None else None
         prm.in_h, prm.in_w, prm.C, prm.stride, prm.N = in_h, in_w, c, stride, n
-        prm.wS, prm.wCin, prm.wCout = kw, cin, cout
+        prm.wR, prm.wS, prm.wCin, prm.wCout = kh, kw, cin, cout
         prm.full_h, prm.full_w = full_h, full_w
-        _kernels.launch(kernel, "yea_conv", a.device, ctypes.addressof(prm),
-                        tile, int(dgrad), int(vec), *grid)
+        _kernels.launch(COUNTERS[kernel][int(dgrad)], "yea_conv", a.device,
+                        ctypes.addressof(prm), tile, int(dgrad),
+                        int(kernel == "ws"), *grid)
         if ws is not None:
             _kernels.launch("conv_reduce", "yea_conv_reduce", a.device,
                             ws.data_ptr(),
@@ -327,14 +395,8 @@ def conv2d_forward(x: Tensor, w: Tensor, b: Optional[Tensor], stride: int,
     y = torch.empty((batch, oh, ow, cout), dtype=torch.float32, device=device)
     if y.numel() > _INT_MAX:
         raise ValueError("output has more than 2**31 - 1 elements")
-    key = ("f", tuple(x.shape), tuple(w.shape), stride, pads, device)
-    launches = _PLANS.get(key)
-    if launches is None:
-        launches = _make_plan(forward_subs(batch, h, wd, kh, kw, stride, pads),
-                              cin, cout, _sm_count(device))
-        _PLANS[key] = launches
-    _run("conv_forward", launches, x, w, b, y, False, cin % BK == 0,
-         (h, wd, cin, stride, cout, oh, ow))
+    _run(_launches(False, x.shape, w.shape, stride, pads, device), x, w, b, y,
+         False, (h, wd, cin, stride, cout, oh, ow), w.shape)
     return y
 
 
@@ -357,16 +419,32 @@ def conv2d_input_grad(dy: Tensor, w: Tensor, x_shape, stride: int,
     dx = torch.empty((batch, h, wd, cin), dtype=torch.float32, device=device)
     if dx.numel() > _INT_MAX:
         raise ValueError("dx has more than 2**31 - 1 elements")
-    key = ("d", tuple(dx.shape), tuple(w.shape), stride, pads, device)
-    launches = _PLANS.get(key)
-    if launches is None:
-        launches = _make_plan(
-            input_grad_subs(batch, h, wd, kh, kw, stride, pads), cout, cin,
-            _sm_count(device))
-        _PLANS[key] = launches
-    _run("conv_input_grad", launches, dy, w, None, dx, True, cout % BK == 0,
-         (oh, ow, cout, 1, cin, h, wd))
+    launches = _launches(True, dx.shape, w.shape, stride, pads, device)
+    wk = n_major(w) if launches[0][0] == "ws" else w
+    _run(launches, dy, wk, None, dx, True, (oh, ow, cout, 1, cin, h, wd),
+         w.shape)
     return dx
+
+
+_N_MAJOR: Dict[int, tuple] = {}
+
+
+def n_major(w: Tensor) -> Tensor:
+    """The (R, S, Cout, Cin) copy of HWIO `w` that the warp-specialised K7d
+    reads as its B, N-major like K7f's (one TMA tile a K tile; read K-major,
+    its FFMA ran 6–9% slower on the H100). Kept while `w` lives and is
+    unchanged: the networks' weights are frozen, so one copy serves every
+    step."""
+    key, state = id(w), (w._version, w.data_ptr())
+    hit = _N_MAJOR.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == state:
+        return hit[2]
+    copy = w.permute(0, 1, 3, 2).contiguous()
+    # A copy made while a CUDA graph captures is written only at replay.
+    if not (w.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _N_MAJOR[key] = (weakref.ref(w, lambda _, k=key: _N_MAJOR.pop(k, None)),
+                         state, copy)
+    return copy
 
 
 def check_frozen(w: Tensor, b: Optional[Tensor]) -> None:
