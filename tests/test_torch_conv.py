@@ -7,7 +7,9 @@ tests/test_torch_conv.py`. On the CPU the tests hold the decomposition the
 kernel follows (the forward's gather, the input gradient's flipped and
 transposed taps and its stride-s phase split) against `F.conv2d` and
 `torch.autograd` in f64, `sd_layers.conv2d`'s CPU path against its
-`F.conv2d` code, and the wrapper's refusals.
+`F.conv2d` code, its route by device and dtype (f32 CUDA tensors to K7,
+fp16 and bf16 ones to `conv2d_plain`, counted), and the wrapper's
+refusals.
 
 On the CPU, too, `plan`'s choice of kernel at each of `chip_smoke`'s
 CONV_SHAPES: the warp-specialised kernel for the 16-byte shapes, not for
@@ -21,7 +23,8 @@ negative control) above that bound, two runs bit-identical, each launch
 counted under its kernel's name. One test captures K7 into a CUDA graph;
 one holds the SDS step's split of launches between the kernels; one a
 tiny SD1.5 step's routing (no cuDNN convolution kernel, launches one for
-one with the calls).
+one with the calls); one an SD1.5 resnet block in fp16 and in bf16, which
+takes cuDNN and no K7 launch and matches the CPU's run in the same dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import gc
 import json
 import re
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -41,6 +45,7 @@ from torch_port_helpers import cuda_device  # noqa: F401  (fixture)
 from youreditableavatar_tpu_torch import _kernels
 from youreditableavatar_tpu_torch.guidance import sd_layers
 from youreditableavatar_tpu_torch.ops import conv_cuda
+from youreditableavatar_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -173,6 +178,40 @@ def test_sd_layers_cpu_path_unchanged(stride, padding, bias):
     dy = torch.randn(got.shape, generator=g)
     assert torch.equal(torch.autograd.grad(got, x, dy)[0],
                        torch.autograd.grad(want, x, dy)[0])
+
+
+@pytest.mark.parametrize("device, dtype, k7", [
+    ("cuda", torch.float32, True), ("cuda", torch.float16, False),
+    ("cuda", torch.bfloat16, False), ("cuda", torch.float64, False),
+    ("cpu", torch.float32, False), ("cpu", torch.float16, False)])
+def test_route_sends_only_f32_cuda_tensors_to_k7(device, dtype, k7):
+    """K7 is f32 only: any other CUDA dtype takes `conv2d_plain` (cuDNN)."""
+    x = SimpleNamespace(is_cuda=device == "cuda", dtype=dtype)
+    assert sd_layers.runs_k7(x) is k7
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+def test_half_convolutions_take_the_plain_path_and_are_counted(dtype):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((1, 6, 5, 8), generator=g).to(dtype).requires_grad_(True)
+    p = {"w": torch.randn((3, 3, 8, 4), generator=g).to(dtype),
+         "b": torch.randn((4,), generator=g).to(dtype)}
+    with profiling.counting() as counted:
+        y = sd_layers.conv2d(x, p)
+        assert counted == {"sd.conv.half.forward": 1}
+        (dx,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    assert counted == {"sd.conv.half.forward": 1,
+                       "sd.conv.half.input_grad": 1}
+    want = sd_layers.conv2d_plain(x, p["w"], p["b"], 1, S1)
+    assert y.dtype == dtype and torch.equal(y, want)
+    assert torch.equal(dx, torch.autograd.grad(want, x,
+                                               torch.ones_like(want))[0])
+    with profiling.counting() as counted:
+        sd_layers.conv2d(x.detach().float(),
+                         {k: v.float() for k, v in p.items()})
+        with torch.no_grad():
+            sd_layers.conv2d(x, p)
+    assert counted == {"sd.conv.half.forward": 1}  # no hook without grad
 
 
 def test_card_path_refuses_a_weight_that_requires_grad():
@@ -613,3 +652,48 @@ def test_tiny_sd15_step_has_no_cudnn_convolution(cuda_device, monkeypatch):
     assert launched["conv_input_grad"] + launched["conv_input_grad_ws"] \
         == sum(1 for c in rec.calls if c[5]) > 0
     assert bool(torch.isfinite(grad).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16],
+                         ids=["fp16", "bf16"])
+def test_half_resnet_block_on_card_matches_the_cpu(dtype, cuda_device):
+    """An SD1.5 UNet resnet block (320 → 640 channels with the time
+    projection and the 1×1 shortcut, at CFG batch 2) in fp16 or bf16:
+    cuDNN on the card, no K7 launch, forward and input gradient within 8
+    units of the dtype's roundoff of the CPU's run in the same dtype, by
+    the largest entry. Each side rounds every layer's output to the dtype
+    (2^-11 for fp16, 2^-8 for bf16) after f32 sums in its own order, so a
+    rounding can fall on either side of a tie in each of the block's ~8
+    roundings; the convolutions' random-sign sums keep the spread near one
+    unit, and 8 leaves room for the gradient's longer chain."""
+    from youreditableavatar_tpu_torch.guidance import sd_unet
+
+    unit = {torch.float16: 2.0 ** -11, torch.bfloat16: 2.0 ** -8}[dtype]
+    gen = torch.Generator().manual_seed(8)
+    p = sd_layers.tree_to(sd_layers.init_resnet(gen, 320, 640, 1280), "cpu",
+                          dtype)
+    x = torch.randn((2, 16, 16, 320), generator=gen).to(dtype)
+    temb = torch.randn((2, 1280), generator=gen).to(dtype)
+    dy = torch.randn((2, 16, 16, 640), generator=gen).to(dtype)
+
+    def run(device):
+        xd = x.to(device).requires_grad_(True)
+        pd = sd_layers.tree_to(p, device, dtype)
+        y = sd_layers.resnet_block(xd, temb.to(device), pd,
+                                   sd_unet.SD15_UNET.groups)
+        (dx,) = torch.autograd.grad(y, xd, dy.to(device))
+        return y.cpu().double(), dx.cpu().double()
+
+    before = dict(_kernels.LAUNCHES)
+    with profiling.counting() as counted:
+        y, dx = run(cuda_device)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES == before
+    assert counted == {"sd.conv.half.forward": 3,
+                       "sd.conv.half.input_grad": 3}
+    y_cpu, dx_cpu = run("cpu")
+    for got, want in ((y, y_cpu), (dx, dx_cpu)):
+        err = float((got - want).abs().max() / want.abs().max())
+        print(f"{dtype} resnet block: max |card − cpu| / max |cpu| {err:.3e}")
+        assert err <= 8 * unit

@@ -13,7 +13,9 @@ output (f32, convolutions and matmuls summed in another order), the
 sinusoid features 1e-5 absolute (their arguments reach 999 rad, where one
 f32 rounding of the argument is 6e-5 rad; 1.7e-6 observed); the trainers' first step 1e-5 relative
 (normal consistency 1e-6 absolute, as `test_torch_spatial.py`), the
-second within its Adam drift (2e-3 relative). Converters, manifests and
+second within its Adam drift (2e-3 relative); the fp16 and bf16 priors
+against JAX's in the same dtype 24 units of the dtype's roundoff of the
+largest entry (`HALF_UNITS_OF_MAX`). Converters, manifests and
 tokenizer ids are held exactly. `sd_layers.attention` is also held, with
 each caller's bias, against the JAX attentions of CLIP, GroundingDINO and
 SAM that it replaced (SAM's windowed one at the SAM tests' encoder
@@ -521,6 +523,54 @@ def test_prior_encode_predict_decode_match_jax(priors):
     for leaf in jax.tree_util.tree_leaves(tp.unet_params) + \
             jax.tree_util.tree_leaves(tp.vae_params):
         assert not leaf.requires_grad and leaf.grad is None
+
+
+# The half-precision priors against the JAX one in the same dtype: each
+# side rounds every layer's output to the dtype after f32 sums in its own
+# order (XLA's, oneDNN's), so the two part by a unit at a rounding tie here
+# and there, and the parting grows through the networks' layers. Read over
+# four draws: 2.6–10.3 units of the dtype's roundoff in fp16, 2.0–10.5 in
+# bf16, of the largest entry; 24 leaves twice that.
+HALF_UNITS_OF_MAX = 24
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_prior_matches_jax_in_the_same_dtype(priors, dtype):
+    """encode_images (the posterior sample on JAX's own fp16 / bf16 draw),
+    its input gradient, and predict_noise's CFG pair, with the priors'
+    parameters and arithmetic in `dtype` on both sides."""
+    jp, _ = priors
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jh = j15.SD15Prior(jp.unet_params, jp.vae_params, jp.unet_cfg,
+                       jp.vae_cfg, dtype=jd)
+    th = t15.SD15Prior(tu.unet_params_from_numpy(np_tree(jp.unet_params)),
+                       tv.vae_params_from_numpy(np_tree(jp.vae_params)),
+                       tu.TEST_UNET, tv.TEST_VAE, dtype=td, device="cpu")
+    assert {x.dtype for x in jax.tree_util.tree_leaves(th.unet_params)
+            + jax.tree_util.tree_leaves(th.vae_params)} == {td}
+    rng = np.random.default_rng(10)
+    img = rng.uniform(0, 1, (2, 32, 32, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    lj = jh.encode_images(jnp.asarray(img), key)
+    eps = jax.random.normal(key, lj.shape, jd)  # vae_encode's draw
+    dl = rng.normal(size=lj.shape).astype(np.float32)
+    gj = jax.grad(lambda x: jnp.sum(jh.encode_images(x, key) * dl))(
+        jnp.asarray(img))
+    x = T(img).requires_grad_()
+    lt = th.encode_images(x, None, noise=T(eps.astype(jnp.float32)).to(td))
+    (lt * T(dl)).sum().backward()
+    t = np.array([20, 700], np.int64)
+    cond = rng.normal(size=(2, 8, 32)).astype(np.float32)
+    unc = rng.normal(size=(2, 8, 32)).astype(np.float32)
+    ej = jh.predict_noise(lj, jnp.asarray(t), cond, unc)
+    et = th.predict_noise(lt.detach(), T(t), T(cond), T(unc))
+    unit = float(jnp.finfo(jd).eps) / 2
+    for got, want, what in ((lt, lj, "encode"), (x.grad, gj, "input grad"),
+                            (et[0], ej[0], "eps cond"),
+                            (et[1], ej[1], "eps uncond")):
+        assert got.dtype == torch.float32
+        assert_close(got, np.asarray(want, np.float32),
+                     HALF_UNITS_OF_MAX * unit, err=f"{dtype} {what}")
 
 
 @pytest.mark.parametrize("t", [0, 60, 130])

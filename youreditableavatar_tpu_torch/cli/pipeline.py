@@ -251,11 +251,17 @@ def run_spatial_stage(
         from youreditableavatar_tpu_torch.guidance.factory import (
             make_guidance_backend)
 
-        prior, enc = make_guidance_backend(
-            guidance_backend, sd_weights, seed, device=dev
-        )
         sys_cfg = system_cfg or {}
         g_cfg = dict(sys_cfg.get("guidance", {}))
+        # threestudio's guidance default: fp16 networks unless the config
+        # sets `half_precision_weights: false`.
+        half = bool(g_cfg.get("half_precision_weights", True))
+        prior, enc = make_guidance_backend(
+            guidance_backend, sd_weights, seed, device=dev,
+            half_precision_weights=half,
+        )
+        # The prompt cache keeps the encoder's precision apart.
+        cache_name = f"{guidance_backend}-fp16" if half else guidance_backend
         sds_kwargs = {
             k: g_cfg[k] for k in
             ("guidance_scale", "min_step_percent", "max_step_percent",
@@ -270,7 +276,7 @@ def run_spatial_stage(
         prompts = PromptProcessor(
             edit_prompt, "low quality", enc,
             cache_dir=os.path.join(out_dir, ".cache"),
-            model_name=guidance_backend,
+            model_name=cache_name,
         )
         # A distinct global prompt (the reference's run.sh local_prompt vs
         # global_prompt; config key system.prompt_global): SDS on the
@@ -279,7 +285,7 @@ def run_spatial_stage(
         prompts_global = prompts if not gp else PromptProcessor(
             str(gp), "low quality", enc,
             cache_dir=os.path.join(out_dir, ".cache"),
-            model_name=guidance_backend,
+            model_name=cache_name,
         )
         loss_cfg = dict(sys_cfg.get("loss", {}))
         opt_cfg = dict(sys_cfg.get("optimizer", {}))

@@ -13,8 +13,12 @@ Modes (the reference's --train / --validate / --test / --export dispatch):
 
 Guidance backend (--guidance): "stub" runs weight-free, "sd15-random" runs
 the whole SD1.5 code path on tiny random weights, "sd15" loads
-diffusers-format weights from --sd-weights. The stage runs on the CUDA card
-unless --device names another device.
+diffusers-format weights from --sd-weights. The SD1.5 UNet, VAE and CLIP
+text encoder run in fp16 unless the config sets
+`system.guidance.half_precision_weights` (threestudio's key, and its
+default: true) to false (override:
+`system.guidance.half_precision_weights=false`). The stage runs on the
+CUDA card unless --device names another device.
 """
 
 import argparse

@@ -39,11 +39,33 @@ def _generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=resolve_device(device)).manual_seed(seed)
 
 
+def sd15_backend(unet_params, vae_params, clip_params, unet_cfg, vae_cfg,
+                 clip_cfg: CLIPTextConfig, half_precision_weights=False,
+                 device=None, tokenizer_dir: Optional[str] = None
+                 ) -> Tuple[object, object]:
+    """SD1.5's (prior, prompt encoder) on parameter trees.
+
+    `half_precision_weights` (threestudio's name) holds the UNet, the VAE
+    and the CLIP text encoder in fp16 and runs them in fp16; else f32.
+    """
+    from youreditableavatar_tpu_torch.guidance.sd15 import (
+        CLIPPromptEncoder,
+        SD15Prior,
+    )
+
+    dtype = torch.float16 if half_precision_weights else torch.float32
+    return (SD15Prior(unet_params, vae_params, unet_cfg, vae_cfg, dtype=dtype,
+                      device=device),
+            CLIPPromptEncoder(clip_params, clip_cfg, tokenizer_dir,
+                              dtype=dtype, device=device))
+
+
 def make_guidance_backend(
     name: str = "stub",
     weights_dir: Optional[str] = None,
     seed: int = 0,
     device=None,
+    half_precision_weights: bool = False,
 ) -> Tuple[object, object]:
     """Build (prior, prompt_encoder) for the spatial stage.
 
@@ -54,6 +76,10 @@ def make_guidance_backend(
                        or .safetensors checkpoints.
       "sd15-random"  — tiny random-weight SD1.5 (the whole real code path,
                        no weights).
+
+    `half_precision_weights` runs the SD1.5 networks in fp16
+    (`sd15_backend`). The default is f32. The stub has no networks to
+    narrow.
     """
     if name == "stub":
         from youreditableavatar_tpu_torch.guidance.stub import (
@@ -65,20 +91,26 @@ def make_guidance_backend(
                 StubPromptEncoder(device=device))
 
     if name == "sd15-random":
-        from youreditableavatar_tpu_torch.guidance.sd15 import (
-            CLIPPromptEncoder,
-            SD15Prior,
-        )
+        from youreditableavatar_tpu_torch.guidance.clip_text import (
+            TEST_CLIP, init_clip_text_params)
+        from youreditableavatar_tpu_torch.guidance.sd_unet import (
+            TEST_UNET, init_unet_params)
+        from youreditableavatar_tpu_torch.guidance.sd_vae import (
+            TEST_VAE, init_vae_params)
 
         gen = _generator(seed, device)
-        return (SD15Prior.random_init(gen, device=device),
-                CLIPPromptEncoder.random_init(gen, device=device))
+        return sd15_backend(
+            init_unet_params(gen, TEST_UNET), init_vae_params(gen, TEST_VAE),
+            init_clip_text_params(gen, TEST_CLIP), TEST_UNET, TEST_VAE,
+            TEST_CLIP, half_precision_weights, device)
 
     if name == "sd15":
-        from youreditableavatar_tpu_torch.guidance.sd15 import (
-            CLIPPromptEncoder,
-            SD15Prior,
-        )
+        from youreditableavatar_tpu_torch.guidance.clip_text import (
+            SD15_CLIP, convert_torch_clip_text)
+        from youreditableavatar_tpu_torch.guidance.sd_unet import (
+            SD15_UNET, _load_torch_state_dict, convert_torch_unet)
+        from youreditableavatar_tpu_torch.guidance.sd_vae import (
+            SD_VAE, convert_torch_vae)
 
         if not weights_dir or not os.path.isdir(weights_dir):
             raise FileNotFoundError(
@@ -86,15 +118,22 @@ def make_guidance_backend(
                 f"layout directory (got {weights_dir!r}); use 'stub' or "
                 f"'sd15-random' to run without weights"
             )
-        prior = SD15Prior.from_torch_files(
-            _find_ckpt(weights_dir, "unet"), _find_ckpt(weights_dir, "vae"),
-            device=device)
         tok_dir = os.path.join(weights_dir, "tokenizer")
-        enc = CLIPPromptEncoder.from_torch_file(
-            _find_ckpt(weights_dir, "text_encoder"),
-            tokenizer_dir=tok_dir if os.path.isdir(tok_dir) else None,
-            device=device)
-        return prior, enc
+        if not os.path.isdir(tok_dir):
+            # Real weights with the hash stand-in would encode meaningless
+            # ids without an error.
+            raise FileNotFoundError(f"real CLIP weights need tokenizer "
+                                    f"files (vocab.json, merges.txt) in "
+                                    f"{tok_dir}")
+
+        def load(sub):
+            return _load_torch_state_dict(_find_ckpt(weights_dir, sub))
+
+        return sd15_backend(
+            convert_torch_unet(load("unet"), SD15_UNET),
+            convert_torch_vae(load("vae"), SD_VAE),
+            convert_torch_clip_text(load("text_encoder")), SD15_UNET, SD_VAE,
+            SD15_CLIP, half_precision_weights, device, tok_dir)
 
     raise ValueError(f"unknown guidance backend {name!r}")
 

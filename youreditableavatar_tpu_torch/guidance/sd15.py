@@ -181,9 +181,10 @@ class CLIPPromptEncoder:
     """`PromptEncoder` backed by the CLIP text tower."""
 
     def __init__(self, params, cfg: CLIPTextConfig = SD15_CLIP,
-                 tokenizer_dir: Optional[str] = None, device=None):
+                 tokenizer_dir: Optional[str] = None, dtype=torch.float32,
+                 device=None):
         self.device = resolve_device(device)
-        self.params = tree_to(params, self.device)
+        self.params = tree_to(params, self.device, dtype)
         self.cfg = cfg
         self.tokenizer = CLIPTokenizerWrapper(cfg, tokenizer_dir)
 

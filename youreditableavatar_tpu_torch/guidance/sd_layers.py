@@ -9,12 +9,15 @@ HWIO conv kernels and (in, out) linear weights. So a JAX parameter tree
 carries across with `params_from_numpy`.
 
 The JAX version spells the convolution as shifted matmuls because the
-TPU's conv lowering is slow; here a CUDA tensor runs the hand-written f32
-implicit GEMM K7 (`ops/conv_cuda.py`, FFMA only, in one fixed summation
-order) on the same layouts, and a CPU tensor `F.conv2d`. Attention is two
-matmuls with the logits and the softmax in f32. `linear`, `layer_norm`
-and `attention` are also CLIP's, SAM's and GroundingDINO's: each dense
-primitive of the guidance networks exists once. Keep TF32 off on the card
+TPU's conv lowering is slow; here an f32 CUDA tensor runs the hand-written
+f32 implicit GEMM K7 (`ops/conv_cuda.py`, FFMA only, in one fixed summation
+order) on the same layouts, and every other tensor `F.conv2d` (on the card,
+an fp16 or bf16 network's convolutions are cuDNN's on the channels-last
+view, counted as `sd.conv.half.forward` / `.input_grad` inside
+`profiling.counting()`). Attention is two matmuls with the logits and the
+softmax in f32. `linear`, `layer_norm` and `attention` are also CLIP's,
+SAM's and GroundingDINO's: each dense primitive of the guidance networks
+exists once. Keep TF32 off on the card
 (`torch.backends.cuda.matmul.allow_tf32 = False`, as `chip_smoke.py`
 sets) so the networks compute in f32 as the JAX package's do.
 
@@ -34,6 +37,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from youreditableavatar_tpu_torch.ops import conv_cuda
+from youreditableavatar_tpu_torch.utils.profiling import count, is_counting
 
 Params = Dict[str, Any]
 
@@ -49,9 +53,10 @@ def linear(x: Tensor, p: Params) -> Tensor:
 def conv2d(x: Tensor, p: Params, stride: int = 1, padding="SAME") -> Tensor:
     """2-D convolution of NHWC `x` with the HWIO kernel `p["w"]` (+ `p["b"]`).
 
-    `padding` is "SAME", "VALID" or ((top, bottom), (left, right)). CUDA
-    tensors run the hand-written implicit GEMM K7 (`ops/conv_cuda.py`),
-    forward and input gradient; CPU tensors run `conv2d_plain`.
+    `padding` is "SAME", "VALID" or ((top, bottom), (left, right)). f32
+    CUDA tensors run the hand-written implicit GEMM K7 (`ops/conv_cuda.py`),
+    forward and input gradient; every other tensor runs `conv2d_plain`
+    (`runs_k7`).
     """
     w = p["w"]  # (kh, kw, cin, cout) HWIO
     kh, kw, _, _ = w.shape
@@ -66,9 +71,25 @@ def conv2d(x: Tensor, p: Params, stride: int = 1, padding="SAME") -> Tensor:
         pads = ((0, 0), (0, 0))
     else:
         pads = tuple((int(q[0]), int(q[1])) for q in padding)
-    if x.is_cuda:  # K7, f32 only: it raises on other types
+    if runs_k7(x):
         return conv_cuda.conv2d(x, w, p.get("b"), s, pads)
-    return conv2d_plain(x, w, p.get("b"), s, pads)
+    y = conv2d_plain(x, w, p.get("b"), s, pads)
+    if x.dtype in (torch.float16, torch.bfloat16) and is_counting():
+        count("sd.conv.half.forward")
+        if y.requires_grad:
+            y.register_hook(_count_half_input_grad)
+    return y
+
+
+def runs_k7(x: Tensor) -> bool:
+    """Whether `conv2d` takes K7 for `x`: f32 CUDA tensors. K7 is f32
+    only; an fp16 or bf16 CUDA tensor, and every CPU tensor, takes
+    `conv2d_plain`."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def _count_half_input_grad(grad: Tensor) -> None:
+    count("sd.conv.half.input_grad")
 
 
 def conv2d_plain(x: Tensor, w: Tensor, b: Optional[Tensor], stride: int,

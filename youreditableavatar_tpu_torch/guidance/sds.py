@@ -6,7 +6,10 @@ Counterpart of `youreditableavatar_tpu/guidance/sds.py`:
   * classifier-free-guidance noise mix ε̂ = ε_u + s·(ε_c − ε_u);
   * gradient w(t)·(ε̂ − ε) with w(t) = 1 − ᾱ_t, reparameterized as
     0.5·‖z − sg(z − grad)‖²/B so autograd delivers exactly that gradient;
-  * NaN-guard + optional gradient clipping.
+  * NaN-guard + optional gradient clipping; the non-finite entries of ε̂
+    that the guard zeroes are counted first (`sds.nonfinite`, inside
+    `profiling.counting()`, on the device), so an overflow of a
+    half-precision UNet shows instead of vanishing.
 
   * the multi-step "du" edit mode (`SDSDUGuidance`): a per-view cache of
     multi-step-denoised edits of the render, refreshed every
@@ -28,6 +31,7 @@ import torch
 from torch import Tensor
 
 from youreditableavatar_tpu_torch.guidance.base import DiffusionPrior
+from youreditableavatar_tpu_torch.utils.profiling import count, is_counting
 from youreditableavatar_tpu_torch.utils.schedule import C, ScheduleSpec
 
 
@@ -76,6 +80,8 @@ class SDSGuidance:
         return latents, t, noise, acp, z_t.detach()
 
     def _loss(self, latents, eps_hat, noise, acp, t) -> Dict[str, Tensor]:
+        if is_counting():
+            count("sds.nonfinite", torch.sum(~torch.isfinite(eps_hat)))
         w = 1.0 - acp  # sds weighting
         grad = torch.nan_to_num(w * (eps_hat - noise))
         if self.cfg.grad_clip is not None:

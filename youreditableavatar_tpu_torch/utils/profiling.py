@@ -14,7 +14,10 @@ Counterpart of `youreditableavatar_tpu/utils/profiling.py`:
     host synchronisation; `take_spans()` reads the events;
   * `count(name, n)` — a program counter (work done, bytes moved). Off,
     it is one bool test; inside a `counting()` block it adds `n` to the
-    block's `collections.Counter` (and to every enclosing block's).
+    block's `collections.Counter` (and to every enclosing block's). A
+    count that costs work to compute (a tensor on the device, which
+    stays there until the counter is read) is taken only where
+    `is_counting()` says so.
     `to_device` / `to_host` move a caller's data either way and count
     the bytes they copy (`to_device` does not wait for the stream);
   * `MetricsLogger` — a JSONL metrics stream, line for line the JAX
@@ -177,10 +180,17 @@ _COUNTERS: List[collections.Counter] = []
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to counter `name` of every open `counting()` block; nothing
-    when none is open."""
+    when none is open. `n` may be a 0-d tensor on the device: the counter
+    then holds a tensor, and the host waits only where it is read."""
     if _COUNTERS:
         for c in _COUNTERS:
             c[name] += n
+
+
+def is_counting() -> bool:
+    """Whether a `counting()` block is open: the guard of a count whose
+    `n` costs work to compute."""
+    return bool(_COUNTERS)
 
 
 @contextlib.contextmanager
